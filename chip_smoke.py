@@ -1,23 +1,35 @@
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA H100.
 
-    python3 chip_smoke.py            # the full check, about two minutes
+    python3 chip_smoke.py                      # the full check
+    python3 chip_smoke.py --phases api --clumps 16384 --steps 50
 
 Phases, each printing its own numbers; any failure exits nonzero:
   0 env        card name and power limit, torch/CUDA/nvcc versions, the
                compute capability (must be 9.0)
-  1 build      the three CUDA kernels from csrc/, built by nvcc
+  1 build      the CUDA kernels from csrc/, one nvcc per source, in parallel
   2 kernels    each kernel against its plain PyTorch version on the card,
                at the shapes of the 262,144-clump bed after one refresh
-               and a few steps, with the median time of each
+               and a few steps, with the median time of each, the bound
+               the card's memory rate sets, and the time of one PyTorch
+               call computing the same sums where there is one
   3 parity     the 4,096-clump bed: one refresh + 10 steps on the card
                (kernels) against the same on the CPU (plain versions),
                with rolling resistance off and with its default
-  4 main path  the 262,144-clump bed, K = 25: 100 warm-up steps, then 250
-               timed steps; launch counts, memory, physics checks
+  4 main       Engine.advance on the 262,144-clump bed, K = 25: 100
+               warm-up steps, then 250 timed steps; launch counts, memory,
+               physics checks
   5 breakdown  one more chunk: refresh and steps timed apart, and the
                device time of a step by operation (torch.profiler)
-The line before the last holds the kernels' JSON record, the one before it
-the card's name and power limit; the last line is the JSON verdict.
+  6 api        DEMSolver on the same bed through its public calls
+               (LoadClumpType, AddClumps, AddBCPlane, Initialize,
+               DoDynamics), K = 25, 250 timed steps after one warm-up
+               chunk, twice: unique fetch at its default and off; launch
+               counts, memory, shrunk capacities, physics checks; then one
+               timed GetContactDetailedInfo; each run's chunk broken
+               down as in phase 5
+With every phase run, the line before the last holds the kernels' JSON
+record and the one before it the card's name and power limit; the last
+line is the JSON verdict.
 """
 
 from __future__ import annotations
@@ -61,6 +73,38 @@ def cuda_ms(torch, fn, reps=10, warm=2):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
+
+
+def bound(bytes_moved, flops):
+    """(bound_ms, bound_by): the least time the card could take, the
+    larger of bytes over its memory rate and operations over its f32
+    rate (published peaks of the H100 SXM at 700 W)."""
+    t_b = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_o = flops / F32_FLOPS * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def counters():
+    """The launch count of every kernel wrapper, by kernel key."""
+    from dem_engine_tpu_torch.ops import fused_force, segred, sweep
+
+    return {"A": segred.seg_sum_sorted, "B": fused_force.hertz_rows_cuda,
+            "B-extras": fused_force.hertz_extras_cuda,
+            "B-ub": fused_force.hertz_rows_ub_cuda,
+            "C": sweep.sweep_table_cuda, "D": segred.seg_sum_sorted_v1}
+
+
+def reset_counts():
+    for w in counters().values():
+        w.launches = 0
+
+
+def read_counts():
+    return {k: w.launches for k, w in counters().items()}
 
 
 def phase_env(torch):
@@ -108,11 +152,52 @@ def settled_case(torch, n_clumps, steps, update_freq=25):
     return eng, state, params
 
 
+def bytes_A(ids, n, perm=None):
+    """Bytes one segment-sum call must move: every id, the rows of live
+    ids (and their permutation entries), the (n, 6) sums."""
+    live = int(((ids >= 0) & (ids < n)).sum())
+    return (ids.shape[0] * 4 + live * 24 + (live * 4 if perm is not None
+                                            else 0) + n * 24), live * 6
+
+
+def bytes_B(ss, n_owners, extras=False, ub=False):
+    """Bytes and operations of one fused force pass: live rows stream
+    their statics, wildcards and B owner index (B-ub: uidx and own_a, and
+    the unique lists once), dead rows only their live marker; each owner
+    record is read once; every row's outputs are written."""
+    cap = ss.cap
+    live = int((ss.fstat_a[0] >= 0).sum())
+    wc = 16 if ss.wildcards else 0
+    b = live * (64 + wc + 4) + (cap - live) * 4 + n_owners * 64
+    b += cap * (48 + wc) + (cap * 36 if extras else 0)
+    if ub:
+        b += live * 4 + ss.uniq_a.shape[0] * 4
+    return b, live * 250
+
+
+def index_add_call(torch, rec, ids, n, perm=None):
+    """One index_add_ computing the same owner sums as a segment-sum call,
+    its destination row per record precomputed."""
+    dest = torch.where((ids >= 0) & (ids < n), ids, n).long()
+    if perm is not None:
+        dest = torch.empty_like(dest).scatter_(0, perm.long(), dest)
+
+    def call():
+        return torch.zeros((n + 1, 6), dtype=rec.dtype,
+                           device=rec.device).index_add_(0, dest, rec)
+    return call
+
+
 def phase_kernels(torch, n_clumps):
     """Each kernel against its plain version on the same card inputs."""
+    import dataclasses
+
+    from dem_engine_tpu_torch import Engine
+    from dem_engine_tpu_torch.initializer import empty_ss_table, ss_uniq_rows
     from dem_engine_tpu_torch.ops import binning, forces, segred, sweep
     from dem_engine_tpu_torch.ops.fused_force import (
-        fused_step_ss, fused_step_ss_plain, hertz_rows, hertz_rows_cuda)
+        fused_step_ss, fused_step_ss_plain, hertz_extras_cuda, hertz_rows,
+        hertz_rows_cuda, hertz_rows_ub_cuda, n_blocks_of, uniq_records)
     from dem_engine_tpu_torch.solver import ss_search_inputs
 
     eng, state, params = settled_case(torch, n_clumps, steps=3)
@@ -121,6 +206,7 @@ def phase_kernels(torch, n_clumps):
     params_k = params.replace(max_drift=torch.tensor(
         25, dtype=torch.int32, device=DEVICE))
     state = eng.refresh(state, params_k)
+    n = state.owners.n
     out = {}
 
     # --- C: pair search --------------------------------------------------
@@ -140,12 +226,17 @@ def phase_kernels(torch, n_clumps):
         tab, S, q["family_mask"], q["nb_cd"], cfg.cap_ss))
     pms = cuda_ms(torch, lambda: binning.sweep_table(
         tab, S, q["family_mask"], q["nb_cd"], cfg.cap_ss, mpb))
+    # sorted records (28 B), bin ids, bin coordinates in; the pair table out
+    bnd = bound(tab.n_rows * 44 + 256 * 256 + cfg.cap_ss * 8,
+                int(kn) * 10)
     print(f"[kernels] C sweep: spheres {S} pairs {int(kn)} (plain "
           f"{int(pn)}) max bin occupancy {mpb} identical={same} "
-          f"kernel {ms:.3f} ms plain {pms:.3f} ms", flush=True)
+          f"kernel {ms:.3f} ms plain {pms:.3f} ms bound {bnd[0]:.4f} ms "
+          f"({bnd[1]})", flush=True)
     if not same:
         fail("kernel C pair table differs from the plain sweep")
-    out["C"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms)
+    out["C"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms, bound=bnd,
+                    library_ms=None)
 
     # --- B: fused SS force pass -------------------------------------------
     h = float(params.h)
@@ -166,19 +257,93 @@ def phase_kernels(torch, n_clumps):
     oa = torch.where(lv, ss.own_a, 0).long()
     ob = torch.where(lv, ss.own_b, 0).long()
     names = sorted(ss.wildcards)
-    wc = torch.stack([ss.wildcards[n] for n in names])
+    wc = torch.stack([ss.wildcards[k] for k in names])
     ms = cuda_ms(torch, lambda: hertz_rows_cuda(ss, krec_w, h,
                                                 cfg.voxel_size, model))
     pms = cuda_ms(torch, lambda: hertz_rows(ss.fstat_a, wc, krec_w[oa],
                                             krec_w[ob], h, cfg.voxel_size,
                                             True))
+    bnd = bound(*bytes_B(ss, n))
     print(f"[kernels] B fused force: rows {ss.cap} live {int(ss.count)} "
           f"owner force err {e_f:.2e} torque err {e_t:.2e} (tol 2e-4) "
           f"wildcard err {e_wc:.2e} (tol 1e-3) kernel {ms:.3f} ms "
-          f"plain {pms:.3f} ms", flush=True)
+          f"plain {pms:.3f} ms bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
     if not (e_f <= 2e-4 and e_t <= 2e-4 and e_wc <= 1e-3):
         fail("kernel B disagrees with its plain version")
-    out["B"] = dict(max_abs_err=abs_b, ms=ms, plain_ms=pms)
+    out["B"] = dict(max_abs_err=abs_b, ms=ms, plain_ms=pms, bound=bnd,
+                    library_ms=None)
+
+    # --- B-extras: the query outputs of the same launch -------------------
+    _, _, xk = fused_step_ss(ss, state.owners, h, cfg.voxel_size, model,
+                             krec_w, extras=True)
+    _, _, xp = fused_step_ss_plain(ss, state.owners, h, cfg.voxel_size,
+                                   model, krec_w, extras=True)
+    errs, abs_x = {}, 0.0
+    for name in ("force", "torque", "cpoint"):
+        k, pl = getattr(xk, name), getattr(xp, name)
+        errs[name] = rel_err(pl[live].cpu(), k[live].cpu())
+        abs_x = max(abs_x, float((k - pl).abs().max()))
+        if k[~live].any():
+            fail(f"kernel B-extras left a dead row's {name} nonzero")
+    ms = cuda_ms(torch, lambda: hertz_extras_cuda(ss, krec_w, h,
+                                                  cfg.voxel_size, model))
+    pms = cuda_ms(torch, lambda: hertz_rows(ss.fstat_a, wc, krec_w[oa],
+                                            krec_w[ob], h, cfg.voxel_size,
+                                            True, extras=True))
+    bnd = bound(*bytes_B(ss, n, extras=True))
+    print(f"[kernels] B-extras: force err {errs['force']:.2e} torque-only "
+          f"err {errs['torque']:.2e} cpoint err {errs['cpoint']:.2e} "
+          f"(tol 2e-4) kernel {ms:.3f} ms plain {pms:.3f} ms bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+    if not max(errs.values()) <= 2e-4:
+        fail("kernel B-extras disagrees with its plain version")
+    out["B-extras"] = dict(max_abs_err=abs_x, ms=ms, plain_ms=pms,
+                           bound=bnd, library_ms=None)
+
+    # --- B-ub: the unique-fetch launch, on the same refresh with lists ----
+    cfg_u = dataclasses.replace(cfg, uniq_cap=512)
+    eng_u = Engine(cfg_u)
+    st_u = eng_u.refresh(state.replace(ss=empty_ss_table(
+        cfg_u, cfg.cap_ss, DEVICE, ss_uniq_rows(cfg_u, n))), params_k)
+    su = st_u.ss
+    ub = su.uniq_a.shape[0] // n_blocks_of(n)
+    direct = hertz_rows_cuda(su, krec_w, h, cfg.voxel_size, model)
+    via_ub = hertz_rows_ub_cuda(su, krec_w, h, cfg.voxel_size, model)
+    identical = all(torch.equal(a, b) for a, b in zip(direct, via_ub))
+    e_direct = max(rel_err(a.cpu(), b.cpu()) for a, b in zip(direct, via_ub))
+    fu, tu, tab_u = fused_step_ss(su, st_u.owners, h, cfg.voxel_size, model,
+                                  krec_w)
+    fpu, tpu, tab_pu = fused_step_ss_plain(su, st_u.owners, h,
+                                           cfg.voxel_size, model, krec_w)
+    e_f, e_t = rel_err(fpu.cpu(), fu.cpu()), rel_err(tpu.cpu(), tu.cpu())
+    live_u = su.idA >= 0
+    e_wc = max(rel_err(tab_pu.wildcards[k][live_u].cpu(),
+                       tab_u.wildcards[k][live_u].cpu())
+               for k in tab_pu.wildcards)
+    abs_u = float(max((fpu - fu).abs().max(), (tpu - tu).abs().max()))
+    lvu = su.fstat_a[0] >= 0
+    oau = torch.where(lvu, su.own_a, 0).long()
+    wcu = torch.stack([su.wildcards[k] for k in names])
+    ms = cuda_ms(torch, lambda: hertz_rows_ub_cuda(su, krec_w, h,
+                                                   cfg.voxel_size, model))
+    pms = cuda_ms(torch, lambda: hertz_rows(
+        su.fstat_a, wcu, krec_w[oau], uniq_records(su, krec_w), h,
+        cfg.voxel_size, True))
+    bnd = bound(*bytes_B(su, n, ub=True))
+    print(f"[kernels] B-ub unique fetch: {n_blocks_of(n)} blocks x {ub} "
+          f"slots, "
+          f"largest unique count {int(su.uniq_max)}; against kernel B "
+          f"identical={identical} (err {e_direct:.2e}, tol 1e-6); against "
+          f"its plain version owner force err {e_f:.2e} torque err "
+          f"{e_t:.2e} (tol 2e-4) wildcard err {e_wc:.2e} (tol 1e-3); "
+          f"kernel {ms:.3f} ms plain {pms:.3f} ms bound {bnd[0]:.4f} ms "
+          f"({bnd[1]})", flush=True)
+    if not (e_direct <= 1e-6 and e_f <= 2e-4 and e_t <= 2e-4
+            and e_wc <= 1e-3):
+        fail("kernel B-ub disagrees with kernel B or its plain version")
+    out["B-ub"] = dict(max_abs_err=abs_u, ms=ms, plain_ms=pms, bound=bnd,
+                       library_ms=None)
+    del eng_u, st_u, su, direct, via_ub, tab_u, tab_pu
 
     # --- A: owner-segment sums, the four calls of one step ----------------
     rec_a, rec_b, _ = hertz_rows_cuda(ss, krec_w, h, cfg.voxel_size, model)
@@ -186,7 +351,6 @@ def phase_kernels(torch, n_clumps):
                             state.anals, params, state.time, cfg.voxel_size,
                             model, krec=forces.pack_kinematics(state.owners))
     sa = p["table"]
-    n = state.owners.n
     calls = [(rec_a, ss.own_a, None), (rec_b, ss.own_b_sorted, ss.perm_b),
              (p["rec_a"], sa.own_a, None),
              (p["rec_b"], sa.own_b_sorted, sa.perm_b)]
@@ -208,15 +372,54 @@ def phase_kernels(torch, n_clumps):
     def all_calls(fn):
         return lambda: [fn(r, i, n, perm=pm) for r, i, pm in calls]
 
+    lib = [index_add_call(torch, r, i, n, pm) for r, i, pm in calls]
     ms = cuda_ms(torch, all_calls(segred.seg_sum_sorted))
     pms = cuda_ms(torch, all_calls(segred.seg_sum_plain))
+    lms = cuda_ms(torch, lambda: [c() for c in lib])
+    moved = [bytes_A(i, n, pm) for _, i, pm in calls]
+    bnd = bound(sum(m[0] for m in moved), sum(m[1] for m in moved))
     print(f"[kernels] A segment sums (4 calls/step: SS A, SS B, SA A, SA B; "
           f"{floor_rows} SA rows on the floor owner) error against the "
           f"float64 sum {max(errs):.2e} (tol 1e-5; plain {max(plain_errs):.2e})"
-          f" kernel {ms:.3f} ms plain {pms:.3f} ms", flush=True)
+          f" kernel {ms:.3f} ms plain {pms:.3f} ms index_add_ {lms:.3f} ms "
+          f"bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
     if not max(errs) <= 1e-5:
         fail("kernel A disagrees with its plain version")
-    out["A"] = dict(max_abs_err=abs_a, ms=ms, plain_ms=pms)
+    out["A"] = dict(max_abs_err=abs_a, ms=ms, plain_ms=pms, bound=bnd,
+                    library_ms=lms)
+
+    # --- D: windowed segment sum (v1) on the SA table's shape -------------
+    # the B side, grouped (the floor owner holds every live row: no
+    # spill), and the A side (one owner per row: a 512-row tile spans
+    # more owners than the 256-owner window, so it must spill)
+    rec_bg = p["rec_b"][sa.perm_b.long()].contiguous()
+    errs_d, abs_d, spills = [], 0.0, []
+    for rec, ids in ((rec_bg, sa.own_b_sorted), (p["rec_a"], sa.own_a)):
+        k, k_spill = segred.seg_sum_sorted_v1(rec, ids, n)
+        pl, p_spill = segred.seg_sum_v1_plain(rec, ids, n)
+        exact, _ = segred.seg_sum_v1_plain(rec.double(), ids, n)
+        scale = max(float(exact.abs().max()), 1e-30)
+        errs_d.append(float((k.double() - exact).abs().max()) / scale)
+        abs_d = max(abs_d, float((k - pl).abs().max()))
+        spills.append((bool(k_spill), bool(p_spill)))
+    ms = cuda_ms(torch, lambda: segred.seg_sum_sorted_v1(
+        rec_bg, sa.own_b_sorted, n))
+    pms = cuda_ms(torch, lambda: segred.seg_sum_v1_plain(
+        rec_bg, sa.own_b_sorted, n))
+    lms = cuda_ms(torch, index_add_call(torch, rec_bg, sa.own_b_sorted, n))
+    b_d, o_d = bytes_A(sa.own_b_sorted, n)
+    bnd = bound(b_d + 4, o_d)
+    print(f"[kernels] D windowed segment sum: rows {sa.cap}; floor side "
+          f"spill (kernel, plain) {spills[0]} err {errs_d[0]:.2e}; clump "
+          f"side spill {spills[1]} err {errs_d[1]:.2e} (tol 1e-5 against "
+          f"the float64 sum of the same rule) kernel {ms:.3f} ms plain "
+          f"{pms:.3f} ms index_add_ {lms:.3f} ms bound {bnd[0]:.4f} ms "
+          f"({bnd[1]})", flush=True)
+    if not (max(errs_d) <= 1e-5 and all(a == b for a, b in spills)
+            and spills[0] == (False, False)):
+        fail("kernel D disagrees with its plain version")
+    out["D"] = dict(max_abs_err=abs_d, ms=ms, plain_ms=pms, bound=bnd,
+                    library_ms=lms)
     del eng, state, tab
     torch.cuda.empty_cache()
     return out
@@ -306,26 +509,35 @@ def phase_parity(torch, n_clumps):
         fail("the card's slice disagrees with the CPU's")
 
 
-def phase_main(torch, n_clumps, k, warm, steps):
-    from dem_engine_tpu_torch.ops import segred, sweep
-    from dem_engine_tpu_torch.ops.fused_force import hertz_rows_cuda
-    from dem_engine_tpu_torch.ops.quat import rotate
-    from dem_engine_tpu_torch.ops.voxel import decode_f32
+def physics(torch, state, voxel_size, tag):
+    """Finite state, no sphere centre within half a radius of the floor
+    plane (z = 2R from the domain's lower corner), SS contacts present."""
+    from dem_engine_tpu_torch.solver import sphere_world_pos
 
+    o = state.owners
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in (o.vel, o.omg, o.loc, o.quat))
+    z = sphere_world_pos(o, state.spheres, voxel_size)[:, 2]
+    min_gap = float((z - 2 * R_SPHERE).min())
+    print(f"[{tag}] physics: finite={finite} lowest sphere centre "
+          f"{min_gap / R_SPHERE:.3f} R above the floor (need > 0.5 R), "
+          f"ss.count {int(state.ss.count)} > 0", flush=True)
+    if not (finite and min_gap > 0.5 * R_SPHERE
+            and int(state.ss.count) > 0):
+        fail(f"{tag} physics checks")
+
+
+def phase_main(torch, n_clumps, k, warm, steps):
     eng, state, params = settled_case(torch, n_clumps, warm, update_freq=k)
     torch.cuda.synchronize()
-    for w in (hertz_rows_cuda, segred.seg_sum_sorted,
-              sweep.sweep_table_cuda):
-        w.launches = 0
     attempts0 = eng.refresh_attempts
     torch.cuda.reset_peak_memory_stats()
+    reset_counts()
     t0 = time.perf_counter()
     state = eng.advance(state, params, steps, k)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {"B": hertz_rows_cuda.launches,
-                "A": segred.seg_sum_sorted.launches,
-                "C": sweep.sweep_table_cuda.launches}
+    launches = read_counts()
     refreshes = eng.refresh_attempts - attempts0
     mem = torch.cuda.max_memory_allocated()
     ms_step = dt * 1e3 / steps
@@ -335,30 +547,17 @@ def phase_main(torch, n_clumps, k, warm, steps):
           f"{int(state.ss.count)} (cap {eng.cfg.cap_ss}) sa.count "
           f"{int(state.sa.count)} (cap {eng.cfg.cap_sa}); peak memory "
           f"{mem / 2**30:.2f} GiB", flush=True)
-    expect = {"B": steps, "A": 4 * steps, "C": refreshes}
+    expect = {"A": 4 * steps, "B": steps, "B-extras": 0, "B-ub": 0,
+              "C": refreshes, "D": 0}
     print(f"[main] launches {launches}, expected {expect} "
           f"({refreshes} refresh attempts)", flush=True)
     if launches != expect or refreshes < steps // k:
         fail("launch counts do not match the main path")
-
-    o = state.owners
-    finite = all(bool(torch.isfinite(x).all())
-                 for x in (o.vel, o.omg, o.loc, o.quat))
-    own = state.spheres.owner.long()
-    base = decode_f32(o.vox[own], o.loc[own], eng.cfg.voxel_size)
-    z = (base + rotate(o.quat[own], state.spheres.relpos))[:, 2]
-    floor_z = 2 * R_SPHERE
-    min_gap = float((z - floor_z).min())
-    print(f"[main] physics: finite={finite} lowest sphere centre "
-          f"{min_gap / R_SPHERE:.3f} R above the floor (need > 0.5 R), "
-          f"ss.count {int(state.ss.count)} > 0", flush=True)
-    if not (finite and min_gap > 0.5 * R_SPHERE
-            and int(state.ss.count) > 0):
-        fail("physics checks")
+    physics(torch, state, eng.cfg.voxel_size, "main")
     return launches, eng, state, params
 
 
-def phase_breakdown(torch, eng, state, params, k):
+def phase_breakdown(torch, eng, state, params, k, tag="breakdown"):
     """Where one chunk's time goes: the refresh and the K steps timed
     apart (synchronised host clock), then the device time of 5 steps by
     operation from torch.profiler, against their unprofiled wall time."""
@@ -378,7 +577,7 @@ def phase_breakdown(torch, eng, state, params, k):
     state = run_steps(state, params_k, eng.cfg, n)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t2) / n * 1e3
-    print(f"[breakdown] refresh {(t1 - t0) * 1e3:.3f} ms, steps "
+    print(f"[{tag}] refresh {(t1 - t0) * 1e3:.3f} ms, steps "
           f"{(t2 - t1) * 1e3 / k:.3f} ms/step, chunk of K={k}: "
           f"{((t1 - t0) + (t2 - t1)) * 1e3 / k:.3f} ms/step", flush=True)
     from torch.profiler import ProfilerActivity, profile
@@ -398,17 +597,107 @@ def phase_breakdown(torch, eng, state, params, k):
         if us > 0:
             rows.append((us / n / 1e3, e.count // n, e.key))
     if not rows:
-        print("[breakdown] profiler recorded no device time: device "
+        print(f"[{tag}] profiler recorded no device time: device "
               "share not measured", flush=True)
         return
     rows.sort(reverse=True)
     dev = sum(r[0] for r in rows)
-    print(f"[breakdown] per step: device busy {dev:.3f} ms of "
+    print(f"[{tag}] per step: device busy {dev:.3f} ms of "
           f"{wall:.3f} ms wall (idle share {1 - dev / wall:.2f}), "
           f"{sum(r[1] for r in rows)} kernel launches", flush=True)
     for ms, cnt, name in rows[:8]:
-        print(f"[breakdown]   {ms:.3f} ms/step  x{cnt}  {name[:70]}",
+        print(f"[{tag}]   {ms:.3f} ms/step  x{cnt}  {name[:70]}",
               flush=True)
+
+
+def api_solver(n_clumps, k, uniq):
+    """DEMSolver on the bench bed through its public calls: the clump
+    template and lattice of cases.build_case, the floor by AddBCPlane."""
+    from dem_engine_tpu_torch import DEMSolver
+    from dem_engine_tpu_torch.cases import R, bed_geometry
+
+    geo = bed_geometry(n_clumps)
+    dims = geo["dims"]
+    s = DEMSolver(device=DEVICE)
+    s.SetVerbosity("WARNING")
+    s.InstructBoxDomainDimension(*dims)
+    mat = s.LoadMaterial({"E": 1e9, "nu": 0.3, "CoR": 0.5, "mu": 0.4,
+                          "Crr": 0.01})
+    tmpl = s.LoadClumpType(geo["mass"], geo["moi"], [R] * 3, geo["rel"], mat)
+    s.AddClumps(tmpl, geo["pos"] - dims / 2)
+    s.AddBCPlane([0, 0, -dims[2] / 2 + 2 * R], [0, 0, 1], mat)
+    s.SetInitTimeStep(5e-6)
+    s.SetGravitationalAcceleration([0, 0, -9.81])
+    s.SetCDUpdateFreq(k)
+    if uniq is not None:
+        s.SetFusedUniqueFetch(uniq)
+    s.Initialize()
+    return s
+
+
+def phase_api(torch, n_clumps, k, steps):
+    """DoDynamics through DEMSolver, with unique fetch at its default and
+    off; then one contact query. Returns the launch counts of the default
+    run's steps and of the query."""
+    h = 5e-6
+    counts = {}
+    for label, uniq in (("unique fetch 512", None), ("unique fetch off", 0)):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        s = api_solver(n_clumps, k, uniq)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        s.DoDynamics(k * h)  # one warm-up chunk
+        attempts0 = s.engine.refresh_attempts
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        s.DoDynamics(steps * h)  # synchronises before it returns
+        dt = time.perf_counter() - t0
+        launches = read_counts()
+        refreshes = s.engine.refresh_attempts - attempts0
+        mem = torch.cuda.max_memory_allocated()
+        cfg = s.engine.cfg
+        st = s.state
+        print(f"[api] {label}: {s.GetNumClumps()} clumps, K={k}, {steps} "
+              f"steps after a {k}-step warm-up (Initialize {t_init:.2f} s): "
+              f"{dt * 1e3 / steps:.3f} ms/step, "
+              f"{n_clumps * steps / dt:.4g} clump-steps/s; peak memory "
+              f"{mem / 2**30:.2f} GiB; ss.count {int(st.ss.count)} "
+              f"sa.count {int(st.sa.count)}; caps after maybe_shrink "
+              f"cap_ss {cfg.cap_ss} cap_sa {cfg.cap_sa}, uniq_cap "
+              f"{cfg.uniq_cap} ({s.engine.shrinks} shrinks)", flush=True)
+        on = uniq is None
+        expect = {"A": 4 * steps, "B": 0 if on else steps, "B-extras": 0,
+                  "B-ub": steps if on else 0, "C": refreshes, "D": 0}
+        print(f"[api] launches {launches}, expected {expect} "
+              f"({refreshes} refresh attempts)", flush=True)
+        if launches != expect or refreshes < steps // k:
+            fail(f"launch counts do not match the API path ({label})")
+        if on and not 0 < cfg.uniq_cap <= 2048:
+            fail("unique fetch is off on the API's default path")
+        physics(torch, st, cfg.voxel_size, "api")
+        if on:
+            counts["steps"] = launches
+            reset_counts()
+            t0 = time.perf_counter()
+            info = {b["kind"]: b for b in s.GetContactDetailedInfo()}
+            dt_q = time.perf_counter() - t0
+            counts["query"] = q = read_counts()
+            n_ss = len(info["SS"]["idA"]) if "SS" in info else 0
+            finite = all(np.isfinite(b[f]).all() for b in info.values()
+                         for f in ("force", "torque_only", "point"))
+            print(f"[api] GetContactDetailedInfo: {dt_q * 1e3:.1f} ms, "
+                  f"kinds {sorted(info)}, SS rows {n_ss}, finite={finite}, "
+                  f"launches {q}", flush=True)
+            if not (q["B-extras"] == 1 and n_ss == int(st.ss.count)
+                    and finite and "SA" in info):
+                fail("the contact query did not run the extras pass")
+        phase_breakdown(torch, s.engine, st, s.params, k,
+                        tag=f"api breakdown, {label}")
+        del s, st
+    torch.cuda.empty_cache()
+    return counts
 
 
 KERNELS = {
@@ -416,9 +705,18 @@ KERNELS = {
           "dem_engine_tpu/ops/pallas_segred.py:165"),
     "B": ("fused_hertz_force", "dem_engine_tpu_torch/csrc/fused_force.cu",
           "dem_engine_tpu/ops/pallas_force.py:629"),
+    "B-extras": ("fused_hertz_force_extras",
+                 "dem_engine_tpu_torch/csrc/fused_force.cu",
+                 "dem_engine_tpu/ops/pallas_force.py:629"),
+    "B-ub": ("fused_hertz_force_unique_fetch",
+             "dem_engine_tpu_torch/csrc/fused_force.cu",
+             "dem_engine_tpu/ops/pallas_force.py:629"),
     "C": ("ss_pair_search", "dem_engine_tpu_torch/csrc/sweep.cu",
           "dem_engine_tpu/ops/pallas_sweep3.py:179"),
+    "D": ("segment_sum_window", "dem_engine_tpu_torch/csrc/segred_v1.cu",
+          "dem_engine_tpu/ops/pallas_segred.py:206"),
 }
+PHASES = ("kernels", "parity", "main", "breakdown", "api")
 
 
 def main():
@@ -428,7 +726,12 @@ def main():
     ap.add_argument("--k", type=int, default=25)
     ap.add_argument("--warm", type=int, default=100)
     ap.add_argument("--steps", type=int, default=250)
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES))
     args = ap.parse_args()
+    phases = args.phases.split(",")
+    if not set(phases) <= set(PHASES):
+        fail(f"unknown phases {sorted(set(phases) - set(PHASES))}")
 
     import torch
 
@@ -439,19 +742,37 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     card = phase_env(torch)
     phase_build()
-    kern = phase_kernels(torch, args.clumps)
-    phase_parity(torch, args.parity_clumps)
-    launches, eng, state, params = phase_main(
-        torch, args.clumps, args.k, args.warm, args.steps)
-    phase_breakdown(torch, eng, state, params, args.k)
-    record = {"kernels": [
-        {"name": KERNELS[key][0], "route": "cuda", "source": KERNELS[key][1],
-         "replaces": KERNELS[key][2], "launches": launches[key],
-         "max_abs_err": kern[key]["max_abs_err"], "ms": kern[key]["ms"],
-         "plain_ms": kern[key]["plain_ms"]}
-        for key in ("A", "B", "C")]}
+    kern = (phase_kernels(torch, args.clumps) if "kernels" in phases
+            else None)
+    if "parity" in phases:
+        phase_parity(torch, args.parity_clumps)
+    main_counts = api_counts = None
+    if "main" in phases:
+        main_counts, eng, state, params = phase_main(
+            torch, args.clumps, args.k, args.warm, args.steps)
+        if "breakdown" in phases:
+            phase_breakdown(torch, eng, state, params, args.k)
+        del eng, state, params
+    if "api" in phases:
+        api_counts = phase_api(torch, args.clumps, args.k, args.steps)
     print(card)
-    print(json.dumps(record))
+    if kern and main_counts and api_counts:
+        # each kernel's launches on the path that runs it: A, B and C on
+        # the main path, B-ub on the API's default steps, B-extras in the
+        # contact query; D has no caller
+        launches = dict(main_counts, **{
+            "B-ub": api_counts["steps"]["B-ub"],
+            "B-extras": api_counts["query"]["B-extras"]})
+        record = {"kernels": [
+            {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches[key],
+             "max_abs_err": kern[key]["max_abs_err"], "ms": kern[key]["ms"],
+             "plain_ms": kern[key]["plain_ms"],
+             "bound_ms": kern[key]["bound"][0],
+             "bound_by": kern[key]["bound"][1],
+             "library_ms": kern[key]["library_ms"]}
+            for key, (name, source, replaces) in KERNELS.items()]}
+        print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-All ``csrc/*.cu`` files compile with one ``nvcc`` call into one shared
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` process, all
+started together, and one more ``nvcc`` links the objects into one shared
 library with a plain C interface, for ``sm_90a``, at first use. The
 library is keyed by a hash of the sources and flags and lives in
 ``_kernels/`` beside this file (listed in ``.gitignore``), so an edited
@@ -25,8 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "-lineinfo"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _P = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -37,10 +37,20 @@ _F32 = ctypes.c_float
 SIGNATURES = {
     # segred.cu: rec, ids, perm (nullable), cap, n_owners, out, stream
     "dem_seg_sum": [_P, _P, _P, _INT, _INT, _P, _P],
+    # segred_v1.cu: rec, ids, cap, n_owners, tile, owin, out, spill,
+    #   stream
+    "dem_seg_sum_v1": [_P, _P, _INT, _INT, _INT, _INT, _P, _P, _P],
     # fused_force.cu: fstat, cap, wx, wy, wz, wt, krec, own_b, h,
-    #   voxel_size, with_friction, rec_a, rec_b, wc_out, stream
+    #   voxel_size, with_friction, rec_a, rec_b, wc_out, ext_f, ext_t,
+    #   ext_cp (the three extras nullable), stream
     "dem_fused_hertz": [_P, _INT, _P, _P, _P, _P, _P, _P, _F32, _F32,
-                        _INT, _P, _P, _P, _P],
+                        _INT, _P, _P, _P, _P, _P, _P, _P],
+    # fused_force.cu: fstat, cap, wx, wy, wz, wt, krec, n_owners, own_a,
+    #   uidx, uniq, ub, h, voxel_size, with_friction, rec_a, rec_b,
+    #   wc_out, ext_f, ext_t, ext_cp, stream
+    "dem_fused_hertz_ub": [_P, _INT, _P, _P, _P, _P, _P, _INT, _P, _P, _P,
+                           _INT, _F32, _F32, _INT, _P, _P, _P, _P, _P, _P,
+                           _P],
     # sweep.cu: rec, sorted_bin, idx3, fam_mask, spad, n_spheres,
     #   nb0, nb1, nb2, cnt, stream
     "dem_sweep_count": [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _P,
@@ -88,14 +98,28 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = ([_nvcc()] + ARCH_FLAGS + NVCC_FLAGS + extra + ["-o", str(tmp)]
-           + [str(f) for f in _sources() if f.suffix == ".cu"])
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    _build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{_build_log}")
+    objs, procs = [], []
+    for src in (f for f in _sources() if f.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
+        cmd = ([_nvcc()] + ARCH_FLAGS + NVCC_FLAGS + extra
+               + ["-c", "-o", str(obj), str(src)])
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+    link = ([_nvcc()] + ARCH_FLAGS + ["-shared", "-o", str(tmp)]
+            + [str(o) for o in objs])
+    if all(rc == 0 for _, _, rc in logs):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append((link, proc.stdout + proc.stderr, proc.returncode))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    _build_log = "".join(log for _, log, _ in logs)
+    for cmd, log, rc in logs:
+        if rc != 0:
+            raise RuntimeError(
+                f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{log}")
     os.replace(tmp, out)
     return out
 

@@ -18,17 +18,20 @@ from .initializer import (
     make_params,
     make_spheres,
     make_state,
+    resolve_device,
 )
 from .models import HertzianForceModel
 from .state import SolverConfig
 
+R = 0.005     # sphere radius
+RHO = 2600.0  # density
 
-def build_case(n_clumps: int, update_freq: int = 20, device="cpu"):
-    """Returns (cfg, state, params) of an `n_clumps` bed on `device`."""
-    R = 0.005
-    RHO = 2600.0
+
+def bed_geometry(n_clumps: int) -> dict:
+    """The bed's clump template and lattice: mass, moi and component
+    offsets of the 3-sphere clump; LBF-relative clump centers (`pos`) and
+    the domain extents (`dims`). The floor plane lies at z = 2R."""
     m_sph = RHO * 4 / 3 * np.pi * R**3
-    mass = 3 * m_sph
     i_sph = 2 / 5 * m_sph * R**2
     moi = np.asarray(
         [i_sph * 3 + 2 * m_sph * R**2, i_sph * 3 + 2 * m_sph * R**2,
@@ -48,6 +51,17 @@ def build_case(n_clumps: int, update_freq: int = 20, device="cpu"):
     dims = np.asarray([nx * dx + 20 * R, ny * dx + 20 * R, nz * dz + 40 * R])
     pos[:, 0] += 10 * R
     pos[:, 1] += 10 * R
+    return dict(mass=3 * m_sph, moi=moi, rel=rel, pos=pos, dims=dims)
+
+
+def build_case(n_clumps: int, update_freq: int = 20, device="cuda"):
+    """Returns (cfg, state, params) of an `n_clumps` bed on `device` (the
+    card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
+    geo = bed_geometry(n_clumps)
+    mass, moi, rel = geo["mass"], geo["moi"], geo["rel"]
+    pos, dims = geo["pos"], geo["dims"]
+    n = n_clumps
 
     voxel_size = float(dims.max()) / 2**20
     cfg = SolverConfig(

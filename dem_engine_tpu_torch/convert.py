@@ -7,8 +7,11 @@ the same field names, and build the port's objects on `device`. Field
 names and dtypes are kept: f32 for reals, i32 for ids and voxels, bool
 for the family masks. This module imports nothing of JAX.
 
-Layouts differ in one place: the port's SS table always carries the
-fused-pass record ``fstat_a`` and no wide ``statics``. A JAX SS table
+Layouts differ in two places: the port's SS table always carries the
+fused-pass record ``fstat_a`` and no wide ``statics``, and of the JAX
+package's unique-fetch fields it keeps the A layout's (``uidx``,
+``uniq_a``) and ``uniq_max``, since its kernel computes each contact
+once. A JAX SS table
 that was built without the fused layout converts only while it holds no
 live contact (then the fused layout is simply the empty one).
 """
@@ -58,7 +61,7 @@ def _fields(obj, device, floats=(), ints=()):
     return out
 
 
-def owners_from_numpy(o, device="cpu") -> Owners:
+def owners_from_numpy(o, device) -> Owners:
     return Owners(**_fields(
         o, device,
         floats=("loc", "quat", "vel", "omg", "lin_acc", "ang_acc",
@@ -66,18 +69,18 @@ def owners_from_numpy(o, device="cpu") -> Owners:
         ints=("vox", "family")))
 
 
-def spheres_from_numpy(s, device="cpu") -> Spheres:
+def spheres_from_numpy(s, device) -> Spheres:
     return Spheres(**_fields(s, device, floats=("relpos", "radius"),
                              ints=("owner", "mat")))
 
 
-def analyticals_from_numpy(a, device="cpu") -> Analyticals:
+def analyticals_from_numpy(a, device) -> Analyticals:
     return Analyticals(**_fields(
         a, device, floats=("relpos", "direction", "size", "normal_sign"),
         ints=("owner", "objtype", "mat")))
 
 
-def triangles_from_numpy(t, device="cpu") -> Triangles:
+def triangles_from_numpy(t, device) -> Triangles:
     tri = Triangles(**_fields(t, device, floats=("nodes",),
                               ints=("owner", "mat")))
     if tri.n:
@@ -86,7 +89,7 @@ def triangles_from_numpy(t, device="cpu") -> Triangles:
     return tri
 
 
-def table_from_numpy(t, device="cpu", fused=False) -> ContactTable:
+def table_from_numpy(t, device, fused=False) -> ContactTable:
     """One contact table. With `fused` (the SS table) the result carries
     the fused layout: the JAX ``fstat_a`` if present, else the empty
     layout of a table with no live contact."""
@@ -102,6 +105,9 @@ def table_from_numpy(t, device="cpu", fused=False) -> ContactTable:
         own_b=_t(_get(t, "own_b"), device, I),
         perm_b=_t(_get(t, "perm_b"), device, I),
         own_b_sorted=_t(_get(t, "own_b_sorted"), device, I),
+        uidx=_t(_get(t, "uidx"), device, F),
+        uniq_a=_t(_get(t, "uniq_a"), device, I),
+        uniq_max=_t(_get(t, "uniq_max"), device, I),
     )
     if not fused:
         return ContactTable(
@@ -129,7 +135,7 @@ def table_from_numpy(t, device="cpu", fused=False) -> ContactTable:
         fstat_a=_t(fstat, device, F))
 
 
-def state_from_numpy(s, device="cpu") -> SimState:
+def state_from_numpy(s, device) -> SimState:
     return SimState(
         owners=owners_from_numpy(_get(s, "owners"), device),
         spheres=spheres_from_numpy(_get(s, "spheres"), device),
@@ -146,7 +152,7 @@ def state_from_numpy(s, device="cpu") -> SimState:
     )
 
 
-def params_from_numpy(p, device="cpu") -> RuntimeParams:
+def params_from_numpy(p, device) -> RuntimeParams:
     floats = ("h", "gravity", "domain", "expand_safety_multi",
               "expand_safety_adder", "approx_max_vel", "error_out_vel",
               "error_out_avg_contacts", "family_extra_margin", "cls_thr",
@@ -190,4 +196,7 @@ def config_from_reference(cfg) -> SolverConfig:
         cap_ss=int(_get(cfg, "cap_ss")),
         cap_st=int(_get(cfg, "cap_st")),
         cap_sa=int(_get(cfg, "cap_sa")),
+        # the JAX package builds unique-fetch layouts on fused tables only
+        uniq_cap=(int(_get(cfg, "uniq_cap"))
+                  if _get(cfg, "use_fused_force") else 0),
     )

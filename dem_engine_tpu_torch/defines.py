@@ -1,7 +1,8 @@
 """Constants and enums of the PyTorch/CUDA port.
 
 Same values as ``dem_engine_tpu.defines``: contact and analytical type
-codes, the reserved family, the integrator enum and the solver defaults.
+codes, the reserved and default families, the integrator, verbosity and
+output enums, and the solver defaults.
 Device-visible ids stay int32, so a state carried across from the JAX
 package keeps its dtypes.
 """
@@ -47,6 +48,7 @@ ENTITY_NORMAL_OUTWARD = -1.0
 # ---------------------------------------------------------------------------
 NUM_FAMILIES = 256
 RESERVED_FAMILY = NUM_FAMILIES - 1
+DEFAULT_FAMILY = 0
 
 
 class TimeIntegrator(enum.Enum):
@@ -57,6 +59,65 @@ class TimeIntegrator(enum.Enum):
     EXTENDED_TAYLOR = "extended_taylor"
 
 
+class Verbosity(enum.IntEnum):
+    QUIET = 0
+    ERROR = 10
+    WARNING = 20
+    INFO = 30
+    STEP_ANOMALY = 32
+    STEP_METRIC = 35
+    DEBUG = 40
+    STEP_DEBUG = 50
+
+
+class OutputContent(enum.Flag):
+    """Clump-output columns."""
+
+    XYZ = enum.auto()
+    QUAT = enum.auto()
+    ABSV = enum.auto()
+    VEL = enum.auto()
+    ANG_VEL = enum.auto()
+    ABS_ACC = enum.auto()
+    ACC = enum.auto()
+    ANG_ACC = enum.auto()
+    FAMILY = enum.auto()
+    MAT = enum.auto()
+    OWNER_WILDCARD = enum.auto()
+    GEO_WILDCARD = enum.auto()
+    EXP_FACTOR = enum.auto()
+
+
+class OutputFormat(enum.Enum):
+    """File format of the Write*File family: CSV, or compressed .npz
+    column archives for BINARY/CHPF."""
+
+    CSV = "csv"
+    BINARY = "binary"
+    CHPF = "chpf"
+
+
+class ContactOutputContent(enum.Flag):
+    CNT_TYPE = enum.auto()
+    FORCE = enum.auto()
+    POINT = enum.auto()
+    COMPONENT = enum.auto()
+    NORMAL = enum.auto()
+    TORQUE = enum.auto()
+    CNT_WILDCARD = enum.auto()
+    OWNER = enum.auto()
+    GEO_ID = enum.auto()
+    NICKNAME = enum.auto()
+
+
+# ---------------------------------------------------------------------------
+# solver defaults
+# ---------------------------------------------------------------------------
+DEFAULT_UPDATE_FREQ = 20
+DEFAULT_EXPAND_SAFETY_MULTI = 1.0
+DEFAULT_EXPAND_SAFETY_ADDER = 0.0
+DEFAULT_ERROR_OUT_VEL = 5e4
+DEFAULT_ERROR_OUT_AVG_CONTACTS = 100.0
 TINY_FLOAT = 1e-12
 HUGE_FLOAT = 1e30
 

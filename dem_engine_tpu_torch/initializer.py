@@ -1,5 +1,5 @@
 """Assembly of SimState / RuntimeParams from flat host arrays, on an
-explicit device."""
+explicit device: every helper takes the device from its caller."""
 
 from __future__ import annotations
 
@@ -22,6 +22,18 @@ from .state import (
 )
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point was asked for. A CUDA device on a
+    machine without a card raises: nothing carries on on the CPU unless
+    the caller asked for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions of the kernels on the CPU")
+    return dev
+
+
 def _f(x, device, shape=None):
     a = torch.as_tensor(np.asarray(x, np.float32), device=device)
     return a if shape is None else a.reshape(shape)
@@ -34,7 +46,7 @@ def _i(x, device, shape=None):
 
 def make_owners(pos, voxel_size, *, quat=None, vel=None, omg=None,
                 family=None, mass=None, moi=None, wildcards=None,
-                device="cpu") -> Owners:
+                device) -> Owners:
     """pos: (N,3) float64 LBF-relative positions (exact host encode)."""
     pos = np.asarray(pos, np.float64).reshape(-1, 3)
     n = pos.shape[0]
@@ -77,8 +89,8 @@ def concat_owners(*parts: Owners) -> Owners:
     )
 
 
-def make_spheres(owner, relpos, radius, mat=None, wildcards=None,
-                 device="cpu") -> Spheres:
+def make_spheres(owner, relpos, radius, mat=None, wildcards=None, *,
+                 device) -> Spheres:
     owner = np.asarray(owner).reshape(-1)
     s = owner.shape[0]
     return Spheres(
@@ -91,7 +103,7 @@ def make_spheres(owner, relpos, radius, mat=None, wildcards=None,
     )
 
 
-def empty_triangles(device="cpu") -> Triangles:
+def empty_triangles(device) -> Triangles:
     return Triangles(
         owner=torch.zeros((0,), dtype=I, device=device),
         nodes=torch.zeros((0, 3, 3), dtype=F, device=device),
@@ -100,7 +112,7 @@ def empty_triangles(device="cpu") -> Triangles:
     )
 
 
-def empty_analyticals(device="cpu") -> Analyticals:
+def empty_analyticals(device) -> Analyticals:
     return Analyticals(
         owner=torch.zeros((0,), dtype=I, device=device),
         objtype=torch.zeros((0,), dtype=I, device=device),
@@ -114,7 +126,7 @@ def empty_analyticals(device="cpu") -> Analyticals:
 
 
 def make_analyticals(owner, objtype, relpos, direction, size, normal_sign,
-                     mat=None, wildcards=None, device="cpu") -> Analyticals:
+                     mat=None, wildcards=None, *, device) -> Analyticals:
     owner = np.asarray(owner).reshape(-1)
     a = owner.shape[0]
     if a == 0:
@@ -132,17 +144,26 @@ def make_analyticals(owner, objtype, relpos, direction, size, normal_sign,
     )
 
 
-def empty_ss_table(cfg: SolverConfig, cap: int, device="cpu"):
+def empty_ss_table(cfg: SolverConfig, cap: int, device, uniq_rows: int = 0):
     """The SS table of a fused (built-in Hertz) model: the slim layout
-    that the fused force pass reads."""
+    that the fused force pass reads, with `uniq_rows` unique-fetch
+    slots."""
     from .ops.forces import require_fused
 
     require_fused(cfg.force_model)
     return ContactTable.empty(cap, cfg.force_model.contact_wildcards,
-                              fused=True, device=device)
+                              fused=True, uniq_rows=uniq_rows, device=device)
 
 
-def empty_table(cfg: SolverConfig, cap: int, device="cpu"):
+def ss_uniq_rows(cfg: SolverConfig, n_owners: int) -> int:
+    """Rows of the per-block unique-other lists (0 when unique fetch is
+    off)."""
+    from .ops.fused_force import n_blocks_of
+
+    return n_blocks_of(n_owners) * cfg.uniq_cap
+
+
+def empty_table(cfg: SolverConfig, cap: int, device):
     """An ST/SA table: the wide statics layout that contact_pass reads."""
     from .ops.forces import premix_names
 
@@ -166,7 +187,8 @@ def make_state(owners: Owners, spheres: Spheres, cfg: SolverConfig,
         spheres=spheres,
         tris=empty_triangles(device),
         anals=anals if anals is not None else empty_analyticals(device),
-        ss=empty_ss_table(cfg, cfg.cap_ss, device),
+        ss=empty_ss_table(cfg, cfg.cap_ss, device,
+                          ss_uniq_rows(cfg, owners.n)),
         st=empty_table(cfg, cfg.cap_st, device),
         sa=empty_table(cfg, cfg.cap_sa, device),
         time=scalar(F),
@@ -195,7 +217,7 @@ def make_params(
     family_extra_margin: Optional[np.ndarray] = None,
     cls_thr: float = 0.0,
     bin_factor: float = 1.0,
-    device="cpu",
+    device,
 ) -> RuntimeParams:
     if family_mask is None:
         family_mask = np.ones((256, 256), bool)

@@ -35,7 +35,9 @@ from . import narrowphase, quat, segred
 from .history import pair_key
 from .voxel import rel_pos
 
-_I32MAX = 2**31 - 1
+# sort key of dead rows: above every owner id, and small enough that
+# history.pair_key's (key + 1) << 32 stays a positive int64
+_DEAD = 2**31 - 2
 _PI = 3.14159265358979323846
 _PI_SQ = 9.869604401089358
 
@@ -85,19 +87,64 @@ def _owner_sort(own_a, own_b, live):
     """Stable argsort by (own_a, own_b), dead rows last. Rows that tie on
     (own_a, own_b) -- up to 9 sphere pairs of two 3-sphere clumps -- keep
     their input order."""
-    ka = torch.where(live, own_a, _I32MAX)
-    kb = torch.where(live, own_b, _I32MAX)
+    ka = torch.where(live, own_a, _DEAD)
+    kb = torch.where(live, own_b, _DEAD)
     return torch.sort(pair_key(ka, kb), stable=True).indices
 
 
+def _uniq_layout(own_ids, other_ids, n_owners, ob, uniq_cap):
+    """Per-block unique other-owner list and per-row local rank of one
+    owner-sorted layout (see ContactTable.uidx).
+
+    own_ids: i32[cap] reducing-side owner, dead rows >= n_owners (trail).
+    other_ids: i32[cap] other-side owner (any value on dead rows).
+    Returns (uidx f32[cap], uniq i32[n_blocks*uniq_cap] other-owner ids,
+    n_owners in unused slots, umax i32[] largest per-block unique
+    count)."""
+    cap = own_ids.shape[0]
+    dev = own_ids.device
+    n_blocks = -(-n_owners // ob)
+    live = own_ids < n_owners
+    blk0 = torch.where(live, own_ids // ob, n_blocks)
+    oth0 = torch.where(live, other_ids, -1)
+    # the same other owner recurs under different owners of one block:
+    # group the rows by (block, other) to rank them
+    order = torch.sort(pair_key(blk0, oth0), stable=True).indices
+    blk, oth = blk0[order], oth0[order]
+    first_row = torch.ones_like(live)
+    first_row[1:] = False
+    new_blk = first_row.clone()
+    new_blk[1:] = blk[1:] != blk[:-1]
+    new_oth = first_row.clone()
+    new_oth[1:] = oth[1:] != oth[:-1]
+    live_z = blk < n_blocks
+    is_first = live_z & (new_blk | new_oth)
+    grank = torch.cumsum(is_first.to(I), 0, dtype=I) - 1
+    base = torch.cummax(torch.where(new_blk & live_z, grank, -(2**30)),
+                        0).values
+    u = torch.where(live_z, grank - base, 0)
+    umax = (torch.where(live_z, u, -1).max() + 1 if cap
+            else torch.zeros((), dtype=I, device=dev))
+    uc = torch.clamp(u, max=uniq_cap - 1)
+    n_slots = n_blocks * uniq_cap
+    slot = torch.where(is_first & (u < uniq_cap), blk * uniq_cap + uc,
+                       n_slots)
+    uniq = torch.full((n_slots + 1,), n_owners, dtype=I, device=dev)
+    uniq[slot.long()] = torch.where(live_z, oth, n_owners).to(I)
+    uidx = torch.empty(cap, dtype=F, device=dev)
+    uidx[order] = uc.to(F)
+    return uidx, uniq[:n_slots], umax.to(I)
+
+
 def finalize_table(kind, table: ContactTable, owners: Owners, spheres,
-                   anals, params, model) -> ContactTable:
+                   anals, params, model, uniq_cap: int = 0) -> ContactTable:
     """Sort the table by (own_a, own_b), rebuild the B-side permutation
     and denormalize the refresh-constant data.
 
     kind "ss" builds the slim fused-pass record ``fstat_a`` (state.
-    FSTAT_W); kind "sa" the wide ``statics`` record and premix that
-    ``contact_pass`` reads."""
+    FSTAT_W) and, with `uniq_cap`, the unique-fetch layout of kernel B-ub
+    (``uidx``, ``uniq_a``, ``uniq_max``); kind "sa" the wide ``statics``
+    record and premix that ``contact_pass`` reads."""
     n_owners = owners.n
     src_b = {"ss": spheres, "sa": anals}[kind]
 
@@ -124,8 +171,7 @@ def finalize_table(kind, table: ContactTable, owners: Owners, spheres,
 
     # B-side permutation: own_b order, ties by own_a
     perm_b = _owner_sort(own_b, own_a, live).to(I)
-    keyB_s = torch.where(live, own_b, _I32MAX)[perm_b.long()]
-    own_b_sorted = torch.where(keyB_s == _I32MAX, n_owners, keyB_s)
+    own_b_sorted = torch.where(live, own_b, n_owners)[perm_b.long()]
 
     out = table.replace(idA=idA, idB=idB, persist=persist, own_a=own_a,
                         own_b=own_b, wildcards=wildcards, perm_b=perm_b,
@@ -134,7 +180,10 @@ def finalize_table(kind, table: ContactTable, owners: Owners, spheres,
         require_fused(model)
         fstat = _fused_statics(live, own_a, iA, iB, oa, ob, mat_a, mat_b,
                                owners, spheres, params)
-        return out.replace(fstat_a=fstat)
+        out = out.replace(fstat_a=fstat)
+        if uniq_cap:
+            out = _with_uniq_layout(out, n_owners, uniq_cap)
+        return out
 
     statics = _build_statics(live, iA, iB, oa, ob, own_a, own_b, mat_a,
                              mat_b, owners, spheres, anals)
@@ -146,6 +195,26 @@ def finalize_table(kind, table: ContactTable, owners: Owners, spheres,
     for name in model.pairwise_props:
         premix[name] = params.pair_props[name][mat_a, mat_b]
     return out.replace(statics=statics, premix=premix)
+
+
+def _with_uniq_layout(table, n_owners, uniq_cap):
+    """Kernel B-ub computes each contact once, from the A layout, so only
+    the A layout's lists are kept. ``uniq_max`` still covers the B layout
+    (own_b_sorted against own_a[perm_b]), as the JAX package's two-pass
+    kernel needs both: OVF_UNIQ then rises on the same scenes, and the
+    engine's growth protocol takes the same steps."""
+    from .fused_force import OB
+
+    live = table.idA >= 0
+    uidx, uniq_a, umax_a = _uniq_layout(
+        torch.where(live, table.own_a, n_owners),
+        torch.where(live, table.own_b, 0), n_owners, OB, uniq_cap)
+    live_b = table.own_b_sorted < n_owners
+    own_a_b = torch.where(live_b, table.own_a[table.perm_b.long()], 0)
+    _, _, umax_b = _uniq_layout(table.own_b_sorted, own_a_b, n_owners, OB,
+                                uniq_cap)
+    return table.replace(uidx=uidx, uniq_a=uniq_a,
+                         uniq_max=torch.maximum(umax_a, umax_b))
 
 
 def _fused_statics(live, own_a, iA, iB, oa, ob, mat_a, mat_b, owners,

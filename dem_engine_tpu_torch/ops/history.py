@@ -22,7 +22,8 @@ from ..state import ContactTable
 
 
 def pair_key(a, b):
-    """int64 key ordering (a, b) lexicographically, for ids >= -1.
+    """int64 key ordering (a, b) lexicographically, for ids in
+    [-1, 2**31 - 2].
 
     ``jax.lax.sort(..., num_keys=2)`` has no torch twin: the port sorts
     one combined key with a stable sort instead."""

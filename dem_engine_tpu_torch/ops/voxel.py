@@ -16,6 +16,18 @@ import torch
 from ..defines import F, I
 
 
+#: voxels along the largest domain extent: |vox_a - vox_b| * voxel_size
+#: stays exact in f32 and i32 keeps headroom
+DEFAULT_VOXELS_PER_AXIS = 1 << 20
+
+
+def choose_voxel_size(domain_extents) -> float:
+    """The voxel size at which the largest extent spans
+    DEFAULT_VOXELS_PER_AXIS voxels."""
+    return float(np.max(np.asarray(domain_extents, dtype=np.float64))) / (
+        DEFAULT_VOXELS_PER_AXIS)
+
+
 def encode(pos, voxel_size):
     """Split LBF-relative f32 positions into (vox, loc)."""
     vox = torch.floor(pos / voxel_size).to(I)

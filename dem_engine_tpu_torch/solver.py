@@ -9,9 +9,11 @@ A; integration). Contact margins sized by K·h·velocity keep the stale
 table exact.
 
 Host protocol: ``Engine.refresh`` reads one overflow word per refresh.
-On a capacity overflow it grows the table and re-runs the refresh from
-the retained pre-refresh state; nothing on this path updates a state
-tensor in place, so the retry is lossless.
+On a capacity overflow it grows the table (or the unique-fetch lists)
+and re-runs the refresh from the retained pre-refresh state; nothing on
+this path updates a state tensor in place, so the retry is lossless.
+``Engine.advance`` shrinks oversized tables after the refresh of its
+first, 64th and every 512th chunk (``maybe_shrink``).
 """
 
 from __future__ import annotations
@@ -24,11 +26,13 @@ from .defines import F, I
 from .models.prescriptions import PrescriptionTables
 from .ops import binning, forces, history, integrator, narrowphase, quat
 from .ops import sweep, voxel
+from .initializer import ss_uniq_rows
 from .ops.fused_force import fused_step_ss
 from .state import (
     OVF_AVG_CONTACTS,
     OVF_SA_CAP,
     OVF_SS_CAP,
+    OVF_UNIQ,
     OVF_VEL,
     RuntimeParams,
     SimState,
@@ -36,7 +40,7 @@ from .state import (
 )
 
 _GROWTH = 1.6
-_CAP_OVF = OVF_SS_CAP | OVF_SA_CAP
+_CAP_OVF = OVF_SS_CAP | OVF_SA_CAP | OVF_UNIQ
 
 
 def _norm(v):
@@ -48,12 +52,18 @@ def _norm(v):
 # ---------------------------------------------------------------------------
 
 
+def sphere_world_pos(owners, spheres, voxel_size):
+    """f32 LBF-relative sphere centers."""
+    own = spheres.owner.long()
+    base = voxel.decode_f32(owners.vox[own], owners.loc[own], voxel_size)
+    return base + quat.rotate(owners.quat[own], spheres.relpos)
+
+
 def sphere_pos_margins(owners, spheres, params, voxel_size):
     """f32 LBF-relative sphere centers and per-sphere CD margins for
     max_drift steps of drift. Returns (pos, margin, absv, raw_absv)."""
     own = spheres.owner.long()
-    base = voxel.decode_f32(owners.vox[own], owners.loc[own], voxel_size)
-    pos = base + quat.rotate(owners.quat[own], spheres.relpos)
+    pos = sphere_world_pos(owners, spheres, voxel_size)
     ex = params.family_extra_margin[owners.family.long()]
     lin = _norm(owners.vel)[own]
     arm = _norm(spheres.relpos) + spheres.radius
@@ -129,7 +139,10 @@ def refresh_contacts(state: SimState, params: RuntimeParams,
         wc_names)
     overflow = torch.where(n_ss > cfg.cap_ss, OVF_SS_CAP, 0).to(I)
     ss = forces.finalize_table("ss", ss, owners, spheres, anals, params,
-                               cfg.force_model)
+                               cfg.force_model, uniq_cap=cfg.uniq_cap)
+    if cfg.uniq_cap:
+        overflow |= torch.where(ss.uniq_max > cfg.uniq_cap, OVF_UNIQ,
+                                0).to(I)
 
     sa, lost_sa = state.sa, torch.zeros((), dtype=I, device=dev)
     if anals.n > 0:
@@ -227,24 +240,63 @@ def run_steps(state: SimState, params: RuntimeParams, cfg: SolverConfig,
 
 
 class Engine:
-    """The refresh/step/grow protocol with a fixed CD cadence."""
+    """The refresh/step/grow/shrink protocol with a fixed CD cadence."""
 
     def __init__(self, cfg: SolverConfig):
         self.cfg = cfg
         #: refreshes run, retries after a capacity growth included (one
         #: pair-search launch each)
         self.refresh_attempts = 0
+        self.shrinks = 0
 
     def grow_for(self, state: SimState, ovf: int) -> SimState:
-        """Grow the capacities named by the overflow bits."""
+        """Grow the capacities named by the overflow bits. A unique-fetch
+        overflow doubles the per-block list capacity up to 2048, past
+        which kernel B (the direct gather) takes over: uniq_cap 0."""
+        cfg = self.cfg
         changes = {}
         if ovf & OVF_SS_CAP:
-            changes["cap_ss"] = int(self.cfg.cap_ss * _GROWTH) + 64
+            changes["cap_ss"] = int(cfg.cap_ss * _GROWTH) + 64
         if ovf & OVF_SA_CAP:
-            changes["cap_sa"] = int(self.cfg.cap_sa * _GROWTH) + 64
-        self.cfg = dataclasses.replace(self.cfg, **changes)
-        return state.replace(ss=state.ss.grown(self.cfg.cap_ss),
-                             sa=state.sa.grown(self.cfg.cap_sa))
+            changes["cap_sa"] = int(cfg.cap_sa * _GROWTH) + 64
+        if ovf & OVF_UNIQ:
+            changes["uniq_cap"] = (cfg.uniq_cap * 2 if cfg.uniq_cap < 2048
+                                   else 0)
+        self.cfg = dataclasses.replace(cfg, **changes)
+        ss = state.ss.grown(self.cfg.cap_ss)
+        if self.cfg.uniq_cap != cfg.uniq_cap:
+            n = state.owners.n
+            rows = ss_uniq_rows(self.cfg, n)
+            ss = ss.replace(
+                uniq_a=torch.full((rows,), n, dtype=I, device=state.device),
+                uidx=torch.zeros((ss.cap if rows else 0,), dtype=F,
+                                 device=state.device))
+        return state.replace(ss=ss, sa=state.sa.grown(self.cfg.cap_sa))
+
+    def maybe_shrink(self, state: SimState) -> SimState:
+        """Shrink a table whose capacity exceeds 1.4x what its count
+        needs (1.25x + 64, rounded up to a coarse quantum so that count
+        jitter keeps the chosen capacity): every per-row cost of a step
+        scales with capacity, not count."""
+        cfg = self.cfg
+        changes = {}
+        for name, cap in (("ss", cfg.cap_ss), ("st", cfg.cap_st),
+                          ("sa", cfg.cap_sa)):
+            cnt = int(getattr(state, name).count)
+            quantum = 512 if name == "ss" else 256
+            quantum = max(quantum, 1 << max(0, cnt.bit_length() - 5))
+            need = max(64, -(-int(cnt * 1.25 + 64) // quantum) * quantum)
+            # 1.4: a growth lands at 1.6x the overflowed capacity, which
+            # must not shrink again at once
+            if cap > 1.4 * need:
+                changes["cap_" + name] = need
+        if not changes:
+            return state
+        self.shrinks += 1
+        self.cfg = dataclasses.replace(cfg, **changes)
+        return state.replace(ss=state.ss.shrunk(self.cfg.cap_ss),
+                             st=state.st.shrunk(self.cfg.cap_st),
+                             sa=state.sa.shrunk(self.cfg.cap_sa))
 
     def refresh(self, state: SimState, params: RuntimeParams) -> SimState:
         """Refresh with capacity growth, retried from the retained
@@ -262,13 +314,18 @@ class Engine:
     def advance(self, state: SimState, params: RuntimeParams,
                 n_steps: int, update_freq: int) -> SimState:
         """Run n_steps, refreshing the contact tables every update_freq
-        steps (the last chunk may be shorter)."""
+        steps (the last chunk may be shorter), and shrinking oversized
+        tables after the refresh of chunk 1, 64 and every 512th."""
         done = 0
+        chunks = 0
         while done < n_steps:
             kk = min(update_freq, n_steps - done)
             params_k = params.replace(
                 max_drift=torch.tensor(kk, dtype=I, device=state.device))
             state = self.refresh(state, params_k)
+            chunks += 1
+            if chunks in (1, 64) or chunks % 512 == 0:
+                state = self.maybe_shrink(state)
             state = run_steps(state, params_k, self.cfg, kk)
             done += kk
         return state

@@ -157,6 +157,16 @@ class ContactTable(_Replace):
     statics: torch.Tensor      # f32[STATIC_W, C]; (0, C) when slim
     premix: Dict[str, torch.Tensor]  # premixed material props, each f32[C]
     fstat_a: torch.Tensor      # f32[FSTAT_W, C]; (FSTAT_W, 0) when not slim
+    # unique-other-owner fetch (SolverConfig.uniq_cap > 0, kernel B-ub):
+    # per block of OB owners of the A side, the distinct B owners of its
+    # rows, and each row's rank in that list. Rows are sorted by
+    # (own_a, own_b), so a block's rows meet each B owner in runs.
+    uidx: torch.Tensor         # f32[C] rank of own_b in its block's list
+                               # (exact int); (0,) when uniq fetch is off
+    uniq_a: torch.Tensor       # i32[NB*UB] per-block B owners (n_owners
+                               # in unused slots)
+    uniq_max: torch.Tensor     # i32[] largest per-block unique count over
+                               # the A and the B layout, at the refresh
 
     @property
     def cap(self) -> int:
@@ -165,7 +175,7 @@ class ContactTable(_Replace):
     @staticmethod
     def empty(cap: int, wildcard_names: Tuple[str, ...] = (),
               premix_names: Tuple[str, ...] = (), fused: bool = False,
-              device=None) -> "ContactTable":
+              uniq_rows: int = 0, device=None) -> "ContactTable":
         def z(*shape, dtype=F):
             return torch.zeros(shape, dtype=dtype, device=device)
 
@@ -192,6 +202,9 @@ class ContactTable(_Replace):
             statics=statics,
             premix={} if fused else {k: z(cap) for k in premix_names},
             fstat_a=fstat,
+            uidx=z(cap if (fused and uniq_rows) else 0),
+            uniq_a=z(uniq_rows, dtype=I),
+            uniq_max=z(dtype=I),
         )
 
     def grown(self, new_cap: int) -> "ContactTable":
@@ -235,6 +248,47 @@ class ContactTable(_Replace):
             statics=cols(self.statics, dead_row0=True),
             premix={k: rows(v) for k, v in self.premix.items()},
             fstat_a=cols(self.fstat_a, dead_row0=True),
+            uidx=rows(self.uidx),
+            uniq_a=self.uniq_a,
+            uniq_max=self.uniq_max,
+        )
+
+    def shrunk(self, new_cap: int) -> "ContactTable":
+        """Capacity shrink to the head rows. Safe while count <= new_cap:
+        live rows come first in the own_a order, and dead rows sort last
+        in the perm_b order, so the head of perm_b is a permutation of the
+        kept rows (the clamp only guards the dead tail)."""
+        if new_cap > self.cap:
+            raise ValueError(f"shrunk({new_cap}) above the capacity "
+                             f"{self.cap}")
+
+        def head(x):
+            return x[:new_cap] if x.shape[0] else x
+
+        def cols(m):
+            # a column slice is a strided view; the kernels take dense rows
+            return (m[:, :new_cap].contiguous() if m.shape[1] == self.cap
+                    else m)
+
+        return ContactTable(
+            idA=head(self.idA),
+            idB=head(self.idB),
+            count=torch.clamp(self.count, max=new_cap),
+            persist=head(self.persist),
+            force=head(self.force),
+            torque=head(self.torque),
+            cpoint=head(self.cpoint),
+            wildcards={k: head(v) for k, v in self.wildcards.items()},
+            own_a=head(self.own_a),
+            own_b=head(self.own_b),
+            perm_b=torch.clamp(self.perm_b[:new_cap], max=new_cap - 1),
+            own_b_sorted=head(self.own_b_sorted),
+            statics=cols(self.statics),
+            premix={k: head(v) for k, v in self.premix.items()},
+            fstat_a=cols(self.fstat_a),
+            uidx=head(self.uidx),
+            uniq_a=self.uniq_a,
+            uniq_max=self.uniq_max,
         )
 
 
@@ -315,5 +369,8 @@ class SolverConfig:
     cap_ss: int = 64
     cap_st: int = 16
     cap_sa: int = 16
+    #: per-block capacity of the unique-other-owner lists of kernel B-ub
+    #: (0 = off: kernel B gathers each row's B record itself)
+    uniq_cap: int = 0
     prescriptions: Tuple[Any, ...] = ()
     family_changes: Tuple[Any, ...] = ()

@@ -6,21 +6,28 @@ run it without the suite's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances as in chip_smoke.py: kernel A within 1e-5 of the exact
-(float64) sums, relative to the largest; kernel B owner wrench 2e-4 and
-wildcards 1e-3 (FMA contraction and atomic summation order); kernel C
-identical pair tables.
+Tolerances as in chip_smoke.py: kernels A and D within 1e-5 of the
+exact (float64) sums, relative to the largest, and D's spill flag equal
+to the plain version's; kernel B owner wrench 2e-4 and wildcards 1e-3
+(FMA contraction and atomic summation order), its extras 2e-4; kernel
+B-ub equal to kernel B (one device function on bit-equal records);
+kernel C identical pair tables.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from dem_engine_tpu_torch import Engine, build_case
+from dem_engine_tpu_torch import DEMSolver, Engine, build_case
+from dem_engine_tpu_torch.initializer import empty_ss_table, ss_uniq_rows
 from dem_engine_tpu_torch.ops import binning, forces, segred, sweep
 from dem_engine_tpu_torch.ops.fused_force import (
     fused_step_ss,
     fused_step_ss_plain,
+    hertz_rows_cuda,
+    hertz_rows_ub_cuda,
 )
 from dem_engine_tpu_torch.solver import run_steps, ss_search_inputs
 
@@ -40,6 +47,18 @@ def bed():
 
 def _rel(ref, got):
     return float((ref - got).abs().max() / ref.abs().max().clamp(min=1e-30))
+
+
+@pytest.fixture
+def bed_uniq(bed):
+    """The bed refreshed with the unique-fetch layout (512 rows per
+    block; the 2,056 owners make 17 blocks)."""
+    cfg, state, params = bed
+    cfg = dataclasses.replace(cfg, uniq_cap=512)
+    state = state.replace(ss=empty_ss_table(
+        cfg, cfg.cap_ss, "cuda", ss_uniq_rows(cfg, state.owners.n)))
+    eng = Engine(cfg)
+    return eng.cfg, eng.refresh(state, params), params
 
 
 def test_segred_kernel_matches_plain(bed):
@@ -72,6 +91,85 @@ def test_fused_kernel_matches_plain(bed):
     live = state.ss.idA >= 0
     for k in ssp.wildcards:
         assert _rel(ssp.wildcards[k][live], ssk.wildcards[k][live]) <= 1e-3
+
+
+def test_extras_kernel_matches_plain(bed):
+    cfg, state, params = bed
+    krec = forces.pack_kinematics(state.owners, world_omg=True)
+    args = (state.ss, state.owners, float(params.h), cfg.voxel_size,
+            cfg.force_model, krec)
+    _, _, tk = fused_step_ss(*args, extras=True)
+    _, _, tp = fused_step_ss_plain(*args, extras=True)
+    live = state.ss.idA >= 0
+    for name in ("force", "torque", "cpoint"):
+        k, p = getattr(tk, name), getattr(tp, name)
+        assert k.shape == p.shape == (state.ss.cap, 3)
+        assert _rel(p[live], k[live]) <= 2e-4
+        assert not k[~live].any()
+
+
+def test_ub_kernel_matches_direct(bed_uniq):
+    cfg, state, params = bed_uniq
+    assert int(state.ss.uniq_max) <= cfg.uniq_cap
+    krec = forces.pack_kinematics(state.owners, world_omg=True)
+    args = (state.ss, krec, float(params.h), cfg.voxel_size,
+            cfg.force_model)
+    ub, direct = hertz_rows_ub_cuda(*args), hertz_rows_cuda(*args)
+    for u, d in zip(ub, direct):
+        assert torch.equal(u, d)
+    f_u, t_u, _ = fused_step_ss(state.ss, state.owners, float(params.h),
+                                cfg.voxel_size, cfg.force_model, krec)
+    f_p, t_p, _ = fused_step_ss_plain(state.ss, state.owners,
+                                      float(params.h), cfg.voxel_size,
+                                      cfg.force_model, krec)
+    assert _rel(f_p, f_u) <= 2e-4 and _rel(t_p, t_u) <= 2e-4
+
+
+def test_segred_v1_kernel_matches_plain(bed):
+    cfg, state, params = bed
+    n = state.owners.n
+    sa = state.sa
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rec = torch.randn((sa.cap, 6), device="cuda", generator=g)
+    sparse = torch.sort(torch.randint(0, 100_000, (1024,), device="cuda",
+                                      generator=g)).values.to(torch.int32)
+    rec_s = torch.randn((1024, 6), device="cuda", generator=g)
+    # the SA table's B side: every live row on the floor owner
+    for r, ids, m in ((rec, sa.own_b_sorted, n), (rec_s, sparse, 100_000)):
+        exact, spill_p = segred.seg_sum_v1_plain(r.double(), ids, m)
+        got, spill = segred.seg_sum_sorted_v1(r, ids, m)
+        assert bool(spill) == bool(spill_p) == (m == 100_000)
+        assert _rel(exact, got.double()) <= 1e-5
+
+
+def test_solver_matches_cpu():
+    """The public DEMSolver on the card against the CPU: 64 clumps on a
+    floor, 10 steps, rolling resistance off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = DEMSolver(device=dev)
+        s.SetVerbosity("QUIET")
+        s.InstructBoxDomainDimension(0.1, 0.1, 0.1)
+        mat = s.LoadMaterial({"E": 1e7, "nu": 0.3, "CoR": 0.5, "mu": 0.4,
+                              "Crr": 0.0})
+        t = s.LoadSphereType(1e-3, 0.005, mat)
+        g = np.stack(np.meshgrid(*[np.arange(4)] * 3, indexing="ij"),
+                     -1).reshape(-1, 3)
+        s.AddClumps(t, g * 0.0099 - 0.02)
+        s.AddBCPlane([0, 0, -0.026], [0, 0, 1], mat)
+        s.SetInitTimeStep(1e-5)
+        s.SetGravitationalAcceleration([0, 0, -9.81])
+        s.SetCDUpdateFreq(5)
+        s.Initialize()
+        s.DoDynamics(1e-4)
+        out[dev] = (s.GetOwnerVelocity(), s.GetNumContacts(),
+                    s.GetContactDetailedInfo())
+    (vg, ng, dg), (vc, nc, dc) = out["cuda"], out["cpu"]
+    assert ng == nc > 0
+    assert np.abs(vg - vc).max() <= 2e-4 * np.abs(vc).max()
+    assert [b["kind"] for b in dg] == [b["kind"] for b in dc]
 
 
 def test_sweep_kernel_matches_plain(bed):

@@ -1,10 +1,14 @@
-"""The plain owner-segment sum of the port (kernel A's CPU version)
-against the JAX package's seg_sum_sorted_blocks in interpret mode.
+"""The plain owner-segment sums of the port (the CPU versions of kernels
+A and D) against the JAX package's seg_sum_sorted_blocks and
+seg_sum_sorted (v1) in interpret mode.
 
 Tolerance: rtol 1e-5 per element, no atol. Both sides add f32 in
 different orders; the largest reading is 7.4e-6 of the element, on the
 heavy owner's 2,500-row sum (4.5e-8 on the random case, 0 on the dead
-tail). Owners with no rows are 0 on both sides.
+tail). Owners with no rows are 0 on both sides. The v1 cases are those
+of tests/test_pallas_segred.py (256-row tiles, 512-owner windows): a
+dense table, a dead tail, and a sparse table that must spill; the spill
+flag must agree, and so must the (then partial) sums.
 """
 
 import jax
@@ -13,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from dem_engine_tpu.ops.pallas_segred import seg_sum_sorted as jax_v1
 from dem_engine_tpu.ops.pallas_segred import seg_sum_sorted_blocks
 from dem_engine_tpu_torch.ops import segred
 
@@ -60,4 +65,32 @@ def test_plain_through_permutation():
     got = segred.seg_sum_sorted(torch.from_numpy(rec[inv]),
                                 torch.from_numpy(ids), n,
                                 perm=torch.from_numpy(perm))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5)
+
+
+def _v1_case(kind):
+    rng = np.random.default_rng(0 if kind != "sparse_spill" else 1)
+    if kind == "sparse_spill":
+        cap, n = 1024, 100_000
+        ids = np.sort(rng.integers(0, n, cap)).astype(np.int32)
+        return np.ones((cap, 6), np.float32), ids, n
+    cap, n, density = (4096, 700, 0.8) if kind == "dense" else (2048, 300,
+                                                                0.3)
+    n_live = int(cap * density)
+    ids = np.sort(rng.integers(0, n, n_live))
+    ids = np.concatenate([ids, np.full(cap - n_live, n)]).astype(np.int32)
+    rec = rng.normal(size=(cap, 6)).astype(np.float32)
+    rec[n_live:] = 0.0
+    return rec, ids, n
+
+
+@pytest.mark.parametrize("kind", ["dense", "dead_tail", "sparse_spill"])
+def test_v1_plain_matches_jax(kind):
+    rec, ids, n = _v1_case(kind)
+    ref, ref_spill = jax_v1(jnp.asarray(rec), jnp.asarray(ids), n,
+                            interpret=True, tile=256, owin=512)
+    got, spill = segred.seg_sum_sorted_v1(torch.from_numpy(rec),
+                                          torch.from_numpy(ids), n,
+                                          tile=256, owin=512)
+    assert bool(spill) == bool(ref_spill) == (kind == "sparse_spill")
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5)

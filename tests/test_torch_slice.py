@@ -9,6 +9,8 @@
   1e-3 of a voxel (the loc tolerance), contact wildcards within 1e-3 per
   pair. Two scenes: the bench bed with rolling resistance off, and the
   random pile of tests/test_pallas_force.py with it on.
+* The JAX builds and the port's runs that several tests read are made
+  once per module (fixtures), so each reference run happens once.
 * The bed with rolling on is ill-conditioned for any comparison of two
   implementations: interior clumps feel forces that cancel by symmetry,
   and the rolling torque's direction is v_rot/|v_rot| for any |v_rot|
@@ -16,10 +18,10 @@
   one side only. A test holds the witnesses: the JAX package's own XLA
   and Pallas paths, and the port against itself nudged by one ulp, part
   by as much as the port and JAX do.
-* Importing the port does not import JAX.
+* Importing the port (every module) or chip_smoke.py does not import
+  JAX or the JAX package.
 """
 
-import dataclasses
 import os
 import subprocess
 import sys
@@ -67,9 +69,46 @@ def _same_fields(ref, got, names):
         np.testing.assert_array_equal(r, g, err_msg=name)
 
 
-def test_build_case_matches_reference():
+@pytest.fixture(scope="module")
+def bed():
+    """The JAX bed (512 clumps, K = 5) and its port, with default Crr."""
     jcfg, js, jp = _build_case(512, update_freq=5)
-    cfg, ts, tp = build_case(512, update_freq=5)
+    cfg = convert.config_from_reference(jcfg)
+    ts = convert.state_from_numpy(jax.tree_util.tree_map(np.asarray, js),
+                                  device="cpu")
+    tp = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                                   device="cpu")
+    return jcfg, js, jp, cfg, ts, tp
+
+
+@pytest.fixture(scope="module")
+def bed_fused():
+    """The JAX bed built with the fused SS layout."""
+    return _build_case(512, update_freq=5, use_fused_force=True)
+
+
+@pytest.fixture(scope="module")
+def port_bed(bed):
+    """The port's state after 2 chunks of K = 5 on the bed, by Crr (None:
+    the default) and whether every clump's loc was nudged by one ulp;
+    each run is made once."""
+    _, _, _, cfg, ts, tp = bed
+    runs = {}
+
+    def get(crr, nudge=False):
+        if (crr, nudge) not in runs:
+            p = tp if crr is None else tp.replace(pair_props={
+                **tp.pair_props, "Crr": torch.full((1, 1), crr)})
+            s = _nudged(ts, 512) if nudge else ts
+            runs[crr, nudge] = Engine(cfg).advance(s, p, 10, 5)
+        return runs[crr, nudge]
+
+    return get
+
+
+def test_build_case_matches_reference(bed):
+    jcfg, js, jp = bed[:3]
+    cfg, ts, tp = build_case(512, update_freq=5, device="cpu")
     assert (cfg.voxel_size, cfg.cap_ss, cfg.cap_sa, cfg.cap_st) == (
         jcfg.voxel_size, jcfg.cap_ss, jcfg.cap_sa, jcfg.cap_st)
     assert cfg.integrator.value == jcfg.integrator.value
@@ -103,16 +142,17 @@ def test_build_case_matches_reference():
                                       _np(tp.pair_props[k]))
 
 
-def test_refresh_pairs_and_history_carry():
+def test_refresh_pairs_and_history_carry(bed, bed_fused):
     # the JAX leg builds the fused SS layout, so its refreshed state
     # converts to the port with live contacts
-    jcfg, js, jp = _build_case(512, update_freq=5, use_fused_force=True)
+    jcfg, js, jp = bed_fused
     jp = jp.replace(max_drift=jnp.asarray(5, jnp.int32))
     refresh = jax.jit(lambda s, p: jax_refresh(s, p, jcfg))
     js = refresh(js, jp)
     cfg = convert.config_from_reference(jcfg)
-    tp = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
-    _, t0, _ = build_case(512, update_freq=5)
+    tp = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                                   device="cpu")
+    t0 = bed[4]
     ts = refresh_contacts(t0, tp, cfg)
     for name in ("ss", "sa"):
         assert (_by_pair(getattr(js, name), getattr(js, name).idA).keys()
@@ -135,7 +175,8 @@ def test_refresh_pairs_and_history_carry():
                                     for k, v in wcs.items()}),
         owners=js.owners.replace(vox=jnp.asarray(vox),
                                  loc=jnp.asarray(loc)))
-    ts2 = convert.state_from_numpy(jax.tree_util.tree_map(np.asarray, js2))
+    ts2 = convert.state_from_numpy(jax.tree_util.tree_map(np.asarray, js2),
+                                   device="cpu")
     js3 = refresh(js2, jp)
     ts3 = refresh_contacts(ts2, tp, cfg)
     assert int(js3.lost_contacts) == int(ts3.lost_contacts) > 0
@@ -147,26 +188,22 @@ def test_refresh_pairs_and_history_carry():
         assert sum(v != 0 for v in ref.values()) > 100
 
 
-def _bed(crr):
-    jcfg, js, jp = _build_case(512, update_freq=5)
-    jp = jp.replace(pair_props={**jp.pair_props,
-                                "Crr": jnp.full((1, 1), crr, jnp.float32)})
-    return jcfg, js, jp
-
-
-def _pile():
-    js, jp, jcfg = build_pile(60, JaxHertz(), seed=1)
-    return jcfg, js, jp
-
-
 @pytest.mark.parametrize("scene", ["bed_no_rolling", "pile_rolling"])
-def test_advance_matches_reference(scene):
-    jcfg, js, jp = _bed(0.0) if scene == "bed_no_rolling" else _pile()
-    cfg = convert.config_from_reference(jcfg)
-    ts = convert.state_from_numpy(jax.tree_util.tree_map(np.asarray, js))
-    tp = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
+def test_advance_matches_reference(scene, bed, port_bed):
+    if scene == "bed_no_rolling":
+        jcfg, js, jp, cfg = bed[:4]
+        jp = jp.replace(pair_props={
+            **jp.pair_props, "Crr": jnp.zeros((1, 1), jnp.float32)})
+        ts = port_bed(0.0)  # the rolling test reads the same run
+    else:
+        js, jp, jcfg = build_pile(60, JaxHertz(), seed=1)
+        cfg = convert.config_from_reference(jcfg)
+        ts = Engine(cfg).advance(
+            convert.state_from_numpy(jax.tree_util.tree_map(np.asarray, js),
+                                     device="cpu"),
+            convert.params_from_numpy(
+                jax.tree_util.tree_map(np.asarray, jp), device="cpu"), 10, 5)
     js = JaxEngine(jcfg).advance(js, jp, 10, update_freq=5)
-    ts = Engine(cfg).advance(ts, tp, 10, 5)
 
     assert int(ts.step) == int(js.step) == 10
     assert _rel(js.owners.vel, _np(ts.owners.vel)) < 2e-4
@@ -199,7 +236,7 @@ def _nudged(ts, n):
     return ts.replace(owners=ts.owners.replace(loc=loc))
 
 
-def test_bed_with_rolling_is_ill_conditioned():
+def test_bed_with_rolling_is_ill_conditioned(bed, bed_fused, port_bed):
     """Why the bed's parity runs at Crr = 0. With the default Crr = 0.01,
     after 2 chunks of K = 5 on 512 clumps, owner omg parts (relative to
     the largest |omg|) by 0.214 between the JAX package's XLA path and its
@@ -208,16 +245,12 @@ def test_bed_with_rolling_is_ill_conditioned():
     port and JAX's XLA path; vel by 5.6e-4, 7.5e-4 and 7.1e-4. The
     port-vs-JAX gap must stay within 3x the larger of the two witnesses.
     With Crr = 0 the same nudge moves omg by 1.7e-8."""
-    n = 512
-    jcfg, js, jp = _build_case(n, update_freq=5)
-    fcfg, jsf, _ = _build_case(n, update_freq=5, use_fused_force=True)
-    cfg = convert.config_from_reference(jcfg)
-    ts = convert.state_from_numpy(jax.tree_util.tree_map(np.asarray, js))
-    tp = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp))
+    jcfg, js, jp = bed[:3]
+    fcfg, jsf, _ = bed_fused
     ref = JaxEngine(jcfg).advance(js, jp, 10, update_freq=5).owners
     ref_f = JaxEngine(fcfg).advance(jsf, jp, 10, update_freq=5).owners
-    port = Engine(cfg).advance(ts, tp, 10, 5).owners
-    nudged = Engine(cfg).advance(_nudged(ts, n), tp, 10, 5).owners
+    port = port_bed(None).owners
+    nudged = port_bed(None, nudge=True).owners
     for o in (ref_f, port, nudged):
         assert all(np.isfinite(_np(x)).all() for x in (o.vel, o.omg))
 
@@ -228,19 +261,19 @@ def test_bed_with_rolling_is_ill_conditioned():
         assert paths > floor and nudge > floor, (field, paths, nudge)
         assert gap < 3 * max(paths, nudge), (field, gap, paths, nudge)
 
-    tp0 = tp.replace(pair_props={**tp.pair_props,
-                                 "Crr": torch.zeros((1, 1))})
-    still = Engine(cfg).advance(ts, tp0, 10, 5).owners
-    moved = Engine(cfg).advance(_nudged(ts, n), tp0, 10, 5).owners
+    still = port_bed(0.0).owners
+    moved = port_bed(0.0, nudge=True).owners
     assert _rel(_np(still.omg), _np(moved.omg)) < 1e-6
 
 
 def test_import_has_no_jax():
     code = (
         "import sys\n"
-        "import dem_engine_tpu_torch, dem_engine_tpu_torch.convert\n"
-        "import dem_engine_tpu_torch.ops.sweep, "
-        "dem_engine_tpu_torch.ops.fused_force\n"
+        "import pkgutil, dem_engine_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    dem_engine_tpu_torch.__path__, 'dem_engine_tpu_torch.')]\n"
+        "assert len(mods) > 25, mods\n"
+        "for m in mods: __import__(m)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib', 'dem_engine_tpu.')) "

@@ -4,6 +4,8 @@ XLA slot sweep, on the dense and family-mask cases of
 tests/test_pallas_sweep3.py. Pair sets and counts must be identical.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +32,13 @@ def _random_spheres(n, seed, box=0.25, r=0.012):
     return pos, reach, owner, family
 
 
+# jitted, so the two cases (equal shapes) share one compile of each
+_jax_xla = jax.jit(jbinning.find_pairs_ss, static_argnums=(7, 8))
+_jax_pallas = jax.jit(
+    functools.partial(find_pairs_ss_pallas3, interpret=True, tile=64,
+                      win=512, family_filter=True), static_argnums=(7,))
+
+
 def _pairs(idA, idB):
     a = np.asarray(idA)
     b = np.asarray(idB)
@@ -51,9 +60,8 @@ def test_sweep_matches_jax(fam_block):
                                    jnp.asarray(reach).max())
     args_j = (jnp.asarray(pos), jnp.asarray(reach), jnp.asarray(owner),
               jnp.asarray(family), jnp.asarray(mask), jbs, jnb, cap)
-    a1, b1, n1, _, _ = jbinning.find_pairs_ss(*args_j, 16)
-    a2, b2, n2, _, _, win_ovf = find_pairs_ss_pallas3(
-        *args_j, interpret=True, tile=64, win=512, family_filter=True)
+    a1, b1, n1, _, _ = _jax_xla(*args_j, 16)
+    a2, b2, n2, _, _, win_ovf = _jax_pallas(*args_j)
     assert not bool(win_ovf)
 
     tbs, tnb = tbinning.build_grid(torch.from_numpy(domain),
