@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port's paths on one NVIDIA H100.
 
     python3 chip_smoke.py                      # the full check
-    python3 chip_smoke.py --phases api --clumps 16384 --steps 50
+    python3 chip_smoke.py --phases api,breakdown --clumps 16384 --steps 50
 
 Phases, each printing its own numbers; any failure exits nonzero:
   0 env        card name and power limit, torch/CUDA/nvcc versions, the
@@ -11,22 +11,27 @@ Phases, each printing its own numbers; any failure exits nonzero:
                at the shapes of the 262,144-clump bed after one refresh
                and a few steps, with the median time of each, the bound
                the card's memory rate sets, and the time of one PyTorch
-               call computing the same sums where there is one
+               call computing the same sums where there is one; the
+               segment sums in every form (A: pair, pair onto an output,
+               one side; D)
   3 parity     the 4,096-clump bed: one refresh + 10 steps on the card
                (kernels) against the same on the CPU (plain versions),
                with rolling resistance off and with its default
   4 main       Engine.advance on the 262,144-clump bed, K = 25: 100
                warm-up steps, then 250 timed steps; launch counts, memory,
                physics checks
-  5 breakdown  one more chunk: refresh and steps timed apart, and the
-               device time of a step by operation (torch.profiler)
-  6 api        DEMSolver on the same bed through its public calls
+  5 api        DEMSolver on the same bed through its public calls
                (LoadClumpType, AddClumps, AddBCPlane, Initialize,
                DoDynamics), K = 25, 250 timed steps after one warm-up
                chunk, twice: unique fetch at its default and off; launch
                counts, memory, shrunk capacities, physics checks; then one
-               timed GetContactDetailedInfo; each run's chunk broken
-               down as in phase 5
+               timed GetContactDetailedInfo
+  6 device     torch.profiler, only after every timed run: the device time
+               and launches per call of the segment sums (A: a step's two
+               pair calls, D) against their bounds
+  7 breakdown  for the main path and each API path, on a bed settled anew,
+               one chunk: refresh and steps timed apart, then the device
+               time and launches of a step by operation
 With every phase run, the line before the last holds the kernels' JSON
 record and the one before it the card's name and power limit; the last
 line is the JSON verdict.
@@ -75,6 +80,82 @@ def cuda_ms(torch, fn, reps=10, warm=2):
     return float(np.median(times))
 
 
+def device_rows(torch, fn, per=1):
+    """What ran on the device during fn() (torch.profiler): a list of
+    (ms, launches, name) per kernel or memset, each divided by `per`,
+    largest first; empty where the profiler recorded no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()  # nothing earlier runs into the profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []  # kernels only: an aten op's row repeats its kernels' time
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            rows.append((us / per / 1e3, e.count / per, e.key))
+    return sorted(rows, reverse=True)
+
+
+def phase_device_times(torch, n_clumps, kern, reps=10):
+    """Device time and launches per call of the segment sums (kernels A
+    and D) on the kernels phase's bed, built anew, from torch.profiler
+    over `reps` calls; the bound is held against this time, not against
+    the event median, which for a few small launches is mostly host time
+    between them. A step's sums must be one zeroing and two launches, D
+    one launch."""
+    from dem_engine_tpu_torch.ops import segred
+
+    eng, state, params = kernel_bed(torch, n_clumps)
+    n = state.owners.n
+    tables, sa, rec_bg = segsum_inputs(eng, state, params)
+    for key, tag, fn, launches in (
+            ("A", "A, a step's two pair calls", step_sums_call(tables, n), 3),
+            ("D", "D", lambda: segred.seg_sum_sorted_v1(
+                rec_bg, sa.own_b_sorted, n), 1)):
+        totals = device_rows(torch, lambda: [fn() for _ in range(reps)])
+        if not totals:
+            fail(f"{tag}: the profiler recorded no device time")
+        # per call: each kernel's mean duration times its launches per
+        # call. The profiler now and then drops one of the first events of
+        # a profile, so a count may fall short of reps x launches, by at
+        # most a fifth
+        rows = [(ms / cnt * round(cnt / reps), round(cnt / reps), name)
+                for ms, cnt, name in totals]
+        for (_, per, name), (_, seen, _) in zip(rows, totals):
+            if not 0.8 * reps * per <= seen <= reps * per:
+                fail(f"{tag}: {seen:g} events of {name[:40]} in {reps} "
+                     f"calls, {per} a call would be {reps * per}")
+        dev, count = sum(r[0] for r in rows), sum(r[1] for r in rows)
+        bnd = kern[key]["bound"][0]
+        print(f"[device] {tag}: {dev:.4f} ms in {count} launches ("
+              + "; ".join(f"{ms * 1e3:.1f} us x{cnt} {name[:40]}, {seen:g} "
+                          f"events in {reps} calls"
+                          for (ms, cnt, name), (_, seen, _)
+                          in zip(rows, totals))
+              + f"), {dev / bnd:.2f}x the bound {bnd:.4f} ms", flush=True)
+        if count != launches:
+            fail(f"{tag}: {count} launches, its design states {launches}")
+        kern[key]["device_ms"], kern[key]["device_launches"] = dev, count
+
+
+def host_us(torch, fn, reps=200):
+    """Host microseconds to enqueue one fn() call (no wait for the card)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 
@@ -92,7 +173,7 @@ def counters():
     """The launch count of every kernel wrapper, by kernel key."""
     from dem_engine_tpu_torch.ops import fused_force, segred, sweep
 
-    return {"A": segred.seg_sum_sorted, "B": fused_force.hertz_rows_cuda,
+    return {"A": segred.seg_sum_pair, "B": fused_force.hertz_rows_cuda,
             "B-extras": fused_force.hertz_extras_cuda,
             "B-ub": fused_force.hertz_rows_ub_cuda,
             "C": sweep.sweep_table_cuda, "D": segred.seg_sum_sorted_v1}
@@ -152,12 +233,52 @@ def settled_case(torch, n_clumps, steps, update_freq=25):
     return eng, state, params
 
 
+def kernel_bed(torch, n_clumps):
+    """The bed whose tables the kernels are held on: three steps, then
+    the next refresh's tables. Returns (engine, state, params)."""
+    eng, state, params = settled_case(torch, n_clumps, steps=3)
+    state = eng.refresh(state, params.replace(max_drift=torch.tensor(
+        25, dtype=torch.int32, device=DEVICE)))
+    return eng, state, params
+
+
+def segsum_inputs(eng, state, params):
+    """One step's wrench rows on `state`: the SS table's from kernel B,
+    the SA table's from contact_pass. Returns ([SS, SA] argument tuples of
+    seg_sum_pair, the SA table, its B rows in grouped order)."""
+    from dem_engine_tpu_torch.ops import forces
+    from dem_engine_tpu_torch.ops.fused_force import hertz_rows_cuda
+
+    cfg, ss = eng.cfg, state.ss
+    rec_a, rec_b, _ = hertz_rows_cuda(
+        ss, forces.pack_kinematics(state.owners, world_omg=True),
+        float(params.h), cfg.voxel_size, cfg.force_model)
+    p = forces.contact_pass("sa", state.sa, state.owners, state.spheres,
+                            state.anals, params, state.time, cfg.voxel_size,
+                            cfg.force_model,
+                            krec=forces.pack_kinematics(state.owners))
+    sa = p["table"]
+    tables = [(rec_a, ss.own_a, rec_b, ss.own_b_sorted, ss.perm_b),
+              (p["rec_a"], sa.own_a, p["rec_b"], sa.own_b_sorted, sa.perm_b)]
+    return tables, sa, p["rec_b"][sa.perm_b.long()].contiguous()
+
+
+def step_sums_call(tables, n):
+    """A step's wrench sums: the SS table's pair call makes the
+    accumulator, the SA table's adds onto it."""
+    from dem_engine_tpu_torch.ops import segred
+
+    return lambda: segred.seg_sum_pair(
+        *tables[1], n, out=segred.seg_sum_pair(*tables[0], n))
+
+
 def bytes_A(ids, n, perm=None):
-    """Bytes one segment-sum call must move: every id, the rows of live
-    ids (and their permutation entries), the (n, 6) sums."""
+    """Bytes and operations of one side of a segment sum, its output
+    apart: every id, dead ones too (which row is live is read from them),
+    and the rows of live ids with their permutation entries."""
     live = int(((ids >= 0) & (ids < n)).sum())
-    return (ids.shape[0] * 4 + live * 24 + (live * 4 if perm is not None
-                                            else 0) + n * 24), live * 6
+    return (ids.shape[0] * 4 + live * 24
+            + (live * 4 if perm is not None else 0)), live * 6
 
 
 def bytes_B(ss, n_owners, extras=False, ub=False):
@@ -200,12 +321,10 @@ def phase_kernels(torch, n_clumps):
         hertz_rows_cuda, hertz_rows_ub_cuda, n_blocks_of, uniq_records)
     from dem_engine_tpu_torch.solver import ss_search_inputs
 
-    eng, state, params = settled_case(torch, n_clumps, steps=3)
+    eng, state, params = kernel_bed(torch, n_clumps)
     cfg = eng.cfg
-    # the next refresh's tables, then one step's worth of records
     params_k = params.replace(max_drift=torch.tensor(
         25, dtype=torch.int32, device=DEVICE))
-    state = eng.refresh(state, params_k)
     n = state.owners.n
     out = {}
 
@@ -345,45 +464,62 @@ def phase_kernels(torch, n_clumps):
                        library_ms=None)
     del eng_u, st_u, su, direct, via_ub, tab_u, tab_pu
 
-    # --- A: owner-segment sums, the four calls of one step ----------------
-    rec_a, rec_b, _ = hertz_rows_cuda(ss, krec_w, h, cfg.voxel_size, model)
-    p = forces.contact_pass("sa", state.sa, state.owners, state.spheres,
-                            state.anals, params, state.time, cfg.voxel_size,
-                            model, krec=forces.pack_kinematics(state.owners))
-    sa = p["table"]
-    calls = [(rec_a, ss.own_a, None), (rec_b, ss.own_b_sorted, ss.perm_b),
-             (p["rec_a"], sa.own_a, None),
-             (p["rec_b"], sa.own_b_sorted, sa.perm_b)]
+    # --- A: owner-segment sums, the two pair calls of one step ------------
+    tables, sa, rec_bg = segsum_inputs(eng, state, params)
+    calls = [side for ra, ia, rb, ib, pb in tables
+             for side in ((ra, ia, None), (rb, ib, pb))]
     # both sides add f32 in an order set by atomics, and the floor owner
     # sums thousands of same-sign rows: the kernel is held to the exact
-    # (float64) sum, 1e-5 of the largest |sum|; the plain version's own
-    # error against it is printed beside
-    errs, plain_errs, abs_a = [], [], 0.0
-    for rec, ids, perm in calls:
-        k = segred.seg_sum_sorted(rec, ids, n, perm=perm).double()
-        pl = segred.seg_sum_plain(rec, ids, n, perm=perm).double()
-        exact = segred.seg_sum_plain(rec.double(), ids, n, perm=perm)
-        scale = max(float(exact.abs().max()), 1e-30)
-        errs.append(float((k - exact).abs().max()) / scale)
-        plain_errs.append(float((pl - exact).abs().max()) / scale)
-        abs_a = max(abs_a, float((k - pl).abs().max()))
+    # (float64) sum, 1e-5 of the largest |sum|, in each form: a pair call
+    # per table, the second table added onto the first's output, and the
+    # one-side call; the plain version's own error is printed beside
+    def exact_of(rec, ids, perm):
+        return segred.seg_sum_plain(rec.double(), ids, n, perm=perm)
+
+    def err(got, exact):
+        return float((got.double() - exact).abs().max()) / max(
+            float(exact.abs().max()), 1e-30)
+
+    exact_t = [exact_of(ra, ia, None) + exact_of(rb, ib, pb)
+               for ra, ia, rb, ib, pb in tables]
+    errs = {"pair": max(err(segred.seg_sum_pair(*t, n), e)
+                        for t, e in zip(tables, exact_t))}
+    acc = segred.seg_sum_pair(*tables[0], n)
+    onto = segred.seg_sum_pair(*tables[1], n, out=acc)
+    errs["pair onto out"] = err(onto, exact_t[0] + exact_t[1])
+    if onto.data_ptr() != acc.data_ptr():
+        fail("seg_sum_pair(out=) did not add in place")
+    errs["one side"] = max(
+        err(segred.seg_sum_sorted(r, i, n, perm=pm), exact_of(r, i, pm))
+        for r, i, pm in calls)
+    plain_err = max(err(segred.seg_sum_plain(r, i, n, perm=pm),
+                        exact_of(r, i, pm)) for r, i, pm in calls)
+    abs_a = float((onto - sum(segred.seg_sum_plain(r, i, n, perm=pm)
+                              for r, i, pm in calls)).abs().max())
     floor_rows = int((sa.own_b_sorted < n).sum())
+
+    step_sums = step_sums_call(tables, n)
 
     def all_calls(fn):
         return lambda: [fn(r, i, n, perm=pm) for r, i, pm in calls]
 
     lib = [index_add_call(torch, r, i, n, pm) for r, i, pm in calls]
-    ms = cuda_ms(torch, all_calls(segred.seg_sum_sorted))
+    ms = cuda_ms(torch, step_sums)
+    ms_one = cuda_ms(torch, all_calls(segred.seg_sum_sorted))
     pms = cuda_ms(torch, all_calls(segred.seg_sum_plain))
     lms = cuda_ms(torch, lambda: [c() for c in lib])
+    # what step_sums moves: the four sides in, one (n, 6) accumulator out
     moved = [bytes_A(i, n, pm) for _, i, pm in calls]
-    bnd = bound(sum(m[0] for m in moved), sum(m[1] for m in moved))
-    print(f"[kernels] A segment sums (4 calls/step: SS A, SS B, SA A, SA B; "
-          f"{floor_rows} SA rows on the floor owner) error against the "
-          f"float64 sum {max(errs):.2e} (tol 1e-5; plain {max(plain_errs):.2e})"
-          f" kernel {ms:.3f} ms plain {pms:.3f} ms index_add_ {lms:.3f} ms "
-          f"bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
-    if not max(errs) <= 1e-5:
+    bnd = bound(sum(m[0] for m in moved) + n * 24, sum(m[1] for m in moved))
+    print(f"[kernels] A segment sums (a step's SS and SA tables, both sides "
+          f"of each in one launch; {floor_rows} SA rows on the floor owner) "
+          f"error against the float64 sum "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (tol 1e-5; plain {plain_err:.2e}); two pair calls {ms:.3f} ms "
+          f"by events; four one-side calls {ms_one:.3f} ms; plain {pms:.3f} "
+          f"ms index_add_ {lms:.3f} ms; bound {bnd[0]:.4f} ms ({bnd[1]})",
+          flush=True)
+    if not max(errs.values()) <= 1e-5:
         fail("kernel A disagrees with its plain version")
     out["A"] = dict(max_abs_err=abs_a, ms=ms, plain_ms=pms, bound=bnd,
                     library_ms=lms)
@@ -392,9 +528,8 @@ def phase_kernels(torch, n_clumps):
     # the B side, grouped (the floor owner holds every live row: no
     # spill), and the A side (one owner per row: a 512-row tile spans
     # more owners than the 256-owner window, so it must spill)
-    rec_bg = p["rec_b"][sa.perm_b.long()].contiguous()
     errs_d, abs_d, spills = [], 0.0, []
-    for rec, ids in ((rec_bg, sa.own_b_sorted), (p["rec_a"], sa.own_a)):
+    for rec, ids in ((rec_bg, sa.own_b_sorted), (tables[1][0], sa.own_a)):
         k, k_spill = segred.seg_sum_sorted_v1(rec, ids, n)
         pl, p_spill = segred.seg_sum_v1_plain(rec, ids, n)
         exact, _ = segred.seg_sum_v1_plain(rec.double(), ids, n)
@@ -406,15 +541,22 @@ def phase_kernels(torch, n_clumps):
         rec_bg, sa.own_b_sorted, n))
     pms = cuda_ms(torch, lambda: segred.seg_sum_v1_plain(
         rec_bg, sa.own_b_sorted, n))
-    lms = cuda_ms(torch, index_add_call(torch, rec_bg, sa.own_b_sorted, n))
+    lib_d = index_add_call(torch, rec_bg, sa.own_b_sorted, n)
+    lms = cuda_ms(torch, lib_d)
+
+    def call_d():
+        return segred.seg_sum_sorted_v1(rec_bg, sa.own_b_sorted, n)
+
+    host_d, host_lib = host_us(torch, call_d), host_us(torch, lib_d)
     b_d, o_d = bytes_A(sa.own_b_sorted, n)
-    bnd = bound(b_d + 4, o_d)
+    bnd = bound(b_d + n * 24 + 1, o_d)  # the sums and the flag byte out
     print(f"[kernels] D windowed segment sum: rows {sa.cap}; floor side "
           f"spill (kernel, plain) {spills[0]} err {errs_d[0]:.2e}; clump "
           f"side spill {spills[1]} err {errs_d[1]:.2e} (tol 1e-5 against "
-          f"the float64 sum of the same rule) kernel {ms:.3f} ms plain "
-          f"{pms:.3f} ms index_add_ {lms:.3f} ms bound {bnd[0]:.4f} ms "
-          f"({bnd[1]})", flush=True)
+          f"the float64 sum of the same rule) kernel {ms:.3f} ms by events, "
+          f"{host_d:.1f} us of host per call; plain {pms:.3f} ms; "
+          f"index_add_ {lms:.3f} ms by events, {host_lib:.1f} us of host "
+          f"per call; bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
     if not (max(errs_d) <= 1e-5 and all(a == b for a, b in spills)
             and spills[0] == (False, False)):
         fail("kernel D disagrees with its plain version")
@@ -547,14 +689,14 @@ def phase_main(torch, n_clumps, k, warm, steps):
           f"{int(state.ss.count)} (cap {eng.cfg.cap_ss}) sa.count "
           f"{int(state.sa.count)} (cap {eng.cfg.cap_sa}); peak memory "
           f"{mem / 2**30:.2f} GiB", flush=True)
-    expect = {"A": 4 * steps, "B": steps, "B-extras": 0, "B-ub": 0,
+    expect = {"A": 2 * steps, "B": steps, "B-extras": 0, "B-ub": 0,
               "C": refreshes, "D": 0}
     print(f"[main] launches {launches}, expected {expect} "
           f"({refreshes} refresh attempts)", flush=True)
     if launches != expect or refreshes < steps // k:
         fail("launch counts do not match the main path")
     physics(torch, state, eng.cfg.voxel_size, "main")
-    return launches, eng, state, params
+    return launches
 
 
 def phase_breakdown(torch, eng, state, params, k, tag="breakdown"):
@@ -580,34 +722,23 @@ def phase_breakdown(torch, eng, state, params, k, tag="breakdown"):
     print(f"[{tag}] refresh {(t1 - t0) * 1e3:.3f} ms, steps "
           f"{(t2 - t1) * 1e3 / k:.3f} ms/step, chunk of K={k}: "
           f"{((t1 - t0) + (t2 - t1)) * 1e3 / k:.3f} ms/step", flush=True)
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        state = run_steps(state, params_k, eng.cfg, n)
-        torch.cuda.synchronize()
-    from torch.autograd import DeviceType
-
-    rows = []  # kernels only: an aten op's row repeats its kernels' time
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        if us > 0:
-            rows.append((us / n / 1e3, e.count // n, e.key))
+    rows = device_rows(
+        torch, lambda: run_steps(state, params_k, eng.cfg, n), per=n)
     if not rows:
         print(f"[{tag}] profiler recorded no device time: device "
               "share not measured", flush=True)
         return
-    rows.sort(reverse=True)
     dev = sum(r[0] for r in rows)
     print(f"[{tag}] per step: device busy {dev:.3f} ms of "
           f"{wall:.3f} ms wall (idle share {1 - dev / wall:.2f}), "
-          f"{sum(r[1] for r in rows)} kernel launches", flush=True)
+          f"{sum(r[1] for r in rows):g} kernel launches", flush=True)
     for ms, cnt, name in rows[:8]:
-        print(f"[{tag}]   {ms:.3f} ms/step  x{cnt}  {name[:70]}",
+        print(f"[{tag}]   {ms:.3f} ms/step  x{cnt:g}  {name[:70]}",
               flush=True)
+
+
+API_H = 5e-6  # the API runs' step size
+API_RUNS = (("unique fetch 512", None), ("unique fetch off", 0))
 
 
 def api_solver(n_clumps, k, uniq):
@@ -639,9 +770,9 @@ def phase_api(torch, n_clumps, k, steps):
     """DoDynamics through DEMSolver, with unique fetch at its default and
     off; then one contact query. Returns the launch counts of the default
     run's steps and of the query."""
-    h = 5e-6
+    h = API_H
     counts = {}
-    for label, uniq in (("unique fetch 512", None), ("unique fetch off", 0)):
+    for label, uniq in API_RUNS:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         s = api_solver(n_clumps, k, uniq)
@@ -668,7 +799,7 @@ def phase_api(torch, n_clumps, k, steps):
               f"cap_ss {cfg.cap_ss} cap_sa {cfg.cap_sa}, uniq_cap "
               f"{cfg.uniq_cap} ({s.engine.shrinks} shrinks)", flush=True)
         on = uniq is None
-        expect = {"A": 4 * steps, "B": 0 if on else steps, "B-extras": 0,
+        expect = {"A": 2 * steps, "B": 0 if on else steps, "B-extras": 0,
                   "B-ub": steps if on else 0, "C": refreshes, "D": 0}
         print(f"[api] launches {launches}, expected {expect} "
               f"({refreshes} refresh attempts)", flush=True)
@@ -693,8 +824,6 @@ def phase_api(torch, n_clumps, k, steps):
             if not (q["B-extras"] == 1 and n_ss == int(st.ss.count)
                     and finite and "SA" in info):
                 fail("the contact query did not run the extras pass")
-        phase_breakdown(torch, s.engine, st, s.params, k,
-                        tag=f"api breakdown, {label}")
         del s, st
     torch.cuda.empty_cache()
     return counts
@@ -748,13 +877,26 @@ def main():
         phase_parity(torch, args.parity_clumps)
     main_counts = api_counts = None
     if "main" in phases:
-        main_counts, eng, state, params = phase_main(
-            torch, args.clumps, args.k, args.warm, args.steps)
-        if "breakdown" in phases:
-            phase_breakdown(torch, eng, state, params, args.k)
-        del eng, state, params
+        main_counts = phase_main(torch, args.clumps, args.k, args.warm,
+                                 args.steps)
     if "api" in phases:
         api_counts = phase_api(torch, args.clumps, args.k, args.steps)
+    # torch.profiler only from here on, so that no timed run follows a
+    # profile in its process; the breakdowns settle their beds anew, so
+    # no timed run shares the card's memory with them either
+    if kern:
+        phase_device_times(torch, args.clumps, kern)
+    if "breakdown" in phases and "main" in phases:
+        phase_breakdown(torch, *settled_case(torch, args.clumps, args.warm,
+                                             update_freq=args.k), args.k)
+    if "breakdown" in phases and "api" in phases:
+        for label, uniq in API_RUNS:
+            torch.cuda.empty_cache()
+            s = api_solver(args.clumps, args.k, uniq)
+            s.DoDynamics(args.k * API_H)
+            phase_breakdown(torch, s.engine, s.state, s.params, args.k,
+                            tag=f"api breakdown, {label}")
+            del s
     print(card)
     if kern and main_counts and api_counts:
         # each kernel's launches on the path that runs it: A, B and C on
@@ -770,7 +912,9 @@ def main():
              "plain_ms": kern[key]["plain_ms"],
              "bound_ms": kern[key]["bound"][0],
              "bound_by": kern[key]["bound"][1],
-             "library_ms": kern[key]["library_ms"]}
+             "library_ms": kern[key]["library_ms"],
+             "device_ms": kern[key].get("device_ms"),
+             "device_launches": kern[key].get("device_launches")}
             for key, (name, source, replaces) in KERNELS.items()]}
         print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -35,8 +35,10 @@ _F32 = ctypes.c_float
 # C entry points: name -> argument types (every entry returns int, the
 # cudaError_t of its launches)
 SIGNATURES = {
-    # segred.cu: rec, ids, perm (nullable), cap, n_owners, out, stream
-    "dem_seg_sum": [_P, _P, _P, _INT, _INT, _P, _P],
+    # segred.cu: rec_a, ids_a, perm_a (nullable), cap_a, rec_b, ids_b,
+    #   perm_b (nullable), cap_b, n_owners, out, zero_out, stream
+    "dem_seg_sum_pair": [_P, _P, _P, _INT, _P, _P, _P, _INT, _INT, _P, _INT,
+                         _P],
     # segred_v1.cu: rec, ids, cap, n_owners, tile, owin, out, spill,
     #   stream
     "dem_seg_sum_v1": [_P, _P, _INT, _INT, _INT, _INT, _P, _P, _P],
@@ -149,10 +151,12 @@ def check(code: int, name: str) -> None:
 
 
 def stream_of(t) -> int:
-    """The current CUDA stream of `t`'s device, as a pointer-sized int."""
+    """The current CUDA stream of `t`'s device, as a pointer-sized int
+    (the raw handle: building a ``torch.cuda.Stream`` object for it costs
+    several microseconds of host time on every launch)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def require(t, dtype, shape=None, name="tensor") -> None:

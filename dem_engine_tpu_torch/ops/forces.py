@@ -7,8 +7,8 @@ is then one 16-float kinematic record per owner, gathered per contact.
 
 Tables are sorted by (own_a, own_b), so the A-side wrench sum is a sum
 over contiguous owner segments; the B side goes through the refresh-built
-permutation ``perm_b`` into own_b order. Both sums run through
-``ops.segred`` (a CUDA kernel on the card).
+permutation ``perm_b`` into own_b order. Both sums of a table run in one
+``segred.seg_sum_pair`` (one CUDA kernel launch on the card).
 
 Conventions: the force is computed ON body A (the sphere) in the global
 frame, B gets -F; the torque-only force (rolling resistance) adds torque
@@ -410,15 +410,15 @@ def contact_pass(kind, table: ContactTable, owners: Owners, spheres,
                 rec_b=torch.cat([-force, tq_b], dim=1))
 
 
-def reduce_wrench_segment(n_owners: int, passes):
-    """Owner wrench sums over the (own_a, own_b)-sorted tables: the A
-    side over contiguous own_a segments, the B side through perm_b over
-    own_b_sorted. Returns (f_acc (N,3), t_acc (N,3))."""
-    acc = None
+def reduce_wrench_segment(n_owners: int, passes, out=None):
+    """Owner wrench sums over the (own_a, own_b)-sorted tables, one
+    ``segred.seg_sum_pair`` per table: the A side over contiguous own_a
+    segments, the B side through perm_b over own_b_sorted. With `out`
+    (N, 6) the sums are added onto it in place. Returns (f_acc (N,3),
+    t_acc (N,3)), two views of the accumulator."""
     for p in passes:
         t = p["table"]
-        part = (segred.seg_sum_sorted(p["rec_a"], t.own_a, n_owners)
-                + segred.seg_sum_sorted(p["rec_b"], t.own_b_sorted,
-                                        n_owners, perm=t.perm_b))
-        acc = part if acc is None else acc + part
-    return acc[:, :3], acc[:, 3:]
+        out = segred.seg_sum_pair(p["rec_a"], t.own_a, p["rec_b"],
+                                  t.own_b_sorted, t.perm_b, n_owners,
+                                  out=out)
+    return out[:, :3], out[:, 3:]

@@ -9,8 +9,11 @@ torque-only force and contact point (query outputs) in the table's
 ``force``/``torque``/``cpoint``.
 
 On CUDA tensors ``csrc/fused_force.cu`` computes each contact once and
-writes the A-side and B-side wrench rows; kernel A (``ops.segred``) sums
-the A rows over own_a and the B rows through perm_b over own_b_sorted.
+writes the A-side and B-side wrench rows; kernel A
+(``segred.seg_sum_pair``) sums the A rows over own_a and the B rows
+through perm_b over own_b_sorted in one launch. ``fused_wrench_ss``
+returns those sums as one (N, 6) tensor, the step's accumulator, which
+``forces.reduce_wrench_segment`` adds the other tables onto.
 A table with unique-fetch rows (``uniq_a``, built at refresh when
 ``SolverConfig.uniq_cap`` > 0) runs kernel B-ub, which reads each
 block's distinct B owners once instead of one B record per row. The
@@ -282,14 +285,16 @@ hertz_rows_ub_cuda.launches = 0
 hertz_extras_cuda.launches = 0
 
 
-def fused_step_ss(table, owners, h, voxel_size, model, krec, extras=False):
-    """One fused SS force step. Returns (f_acc (N,3), t_acc (N,3),
-    new_table). `h` is the step size as a host float. With `extras` the
-    new table also carries the per-contact force/torque/cpoint."""
+def fused_wrench_ss(table, owners, h, voxel_size, model, krec,
+                    extras=False):
+    """One fused SS force step. Returns (acc (N, 6) owner wrench sums
+    [force, body-frame torque], new_table). `h` is the step size as a
+    host float. With `extras` the new table also carries the per-contact
+    force/torque/cpoint."""
     if not table.fstat_a.is_cuda:
-        return fused_step_ss_plain(table, owners, h, voxel_size, model, krec,
-                                   extras)
-    n = owners.n
+        f_acc, t_acc, new_table = fused_step_ss_plain(
+            table, owners, h, voxel_size, model, krec, extras)
+        return torch.cat([f_acc, t_acc], dim=1), new_table
     if extras:
         rec_a, rec_b, wc_new, ext = hertz_extras_cuda(table, krec, h,
                                                       voxel_size, model)
@@ -301,8 +306,14 @@ def fused_step_ss(table, owners, h, voxel_size, model, krec, extras=False):
         rec_a, rec_b, wc_new = hertz_rows_cuda(table, krec, h, voxel_size,
                                                model)
         ext = None
-    acc = (segred.seg_sum_sorted(rec_a, table.own_a, n)
-           + segred.seg_sum_sorted(rec_b, table.own_b_sorted, n,
-                                   perm=table.perm_b))
-    return (acc[:, :3], acc[:, 3:],
-            _new_table(table, _wc_names(table, model), wc_new, ext))
+    acc = segred.seg_sum_pair(rec_a, table.own_a, rec_b, table.own_b_sorted,
+                              table.perm_b, owners.n)
+    return acc, _new_table(table, _wc_names(table, model), wc_new, ext)
+
+
+def fused_step_ss(table, owners, h, voxel_size, model, krec, extras=False):
+    """``fused_wrench_ss`` with the sums split: (f_acc (N,3), t_acc (N,3),
+    new_table), two views of one tensor."""
+    acc, new_table = fused_wrench_ss(table, owners, h, voxel_size, model,
+                                     krec, extras)
+    return acc[:, :3], acc[:, 3:], new_table

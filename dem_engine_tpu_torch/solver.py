@@ -27,7 +27,7 @@ from .models.prescriptions import PrescriptionTables
 from .ops import binning, forces, history, integrator, narrowphase, quat
 from .ops import sweep, voxel
 from .initializer import ss_uniq_rows
-from .ops.fused_force import fused_step_ss
+from .ops.fused_force import fused_wrench_ss
 from .state import (
     OVF_AVG_CONTACTS,
     OVF_SA_CAP,
@@ -198,13 +198,16 @@ def dynamics_step(state: SimState, params: RuntimeParams,
     model = cfg.force_model
     n = owners.n
 
-    f_acc = torch.zeros((n, 3), dtype=F, device=state.device)
-    t_acc = torch.zeros_like(f_acc)
+    # one (n, 6) wrench accumulator per step: the SS sums create it and
+    # the SA sums add onto it in place
     ss = state.ss
     if state.spheres.n > 0 and ss.cap > 0:
         krec_w = forces.pack_kinematics(owners, world_omg=True)
-        f_acc, t_acc, ss = fused_step_ss(ss, owners, h, cfg.voxel_size,
-                                         model, krec_w)
+        acc, ss = fused_wrench_ss(ss, owners, h, cfg.voxel_size, model,
+                                  krec_w)
+    else:
+        acc = torch.zeros((n, 6), dtype=F, device=state.device)
+    f_acc, t_acc = acc[:, :3], acc[:, 3:]
     sa = state.sa
     if state.anals.n > 0 and sa.cap > 0 and state.spheres.n > 0:
         krec = forces.pack_kinematics(owners)  # body-frame omg
@@ -212,9 +215,7 @@ def dynamics_step(state: SimState, params: RuntimeParams,
             "sa", sa, owners, state.spheres, state.anals, params,
             state.time, cfg.voxel_size, model, krec=krec)
         sa = p["table"]
-        f_sa, t_sa = forces.reduce_wrench_segment(n, [p])
-        f_acc = f_sa + f_acc
-        t_acc = t_sa + t_acc
+        forces.reduce_wrench_segment(n, [p], out=acc)
 
     owners = integrator.integrate_owners(
         owners, f_acc, t_acc, params, tables, cfg.voxel_size,

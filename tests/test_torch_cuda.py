@@ -6,12 +6,12 @@ run it without the suite's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances as in chip_smoke.py: kernels A and D within 1e-5 of the
-exact (float64) sums, relative to the largest, and D's spill flag equal
-to the plain version's; kernel B owner wrench 2e-4 and wildcards 1e-3
-(FMA contraction and atomic summation order), its extras 2e-4; kernel
-B-ub equal to kernel B (one device function on bit-equal records);
-kernel C identical pair tables.
+Tolerances as in chip_smoke.py: kernels A (one-side and pair form) and
+D within 1e-5 of the exact (float64) sums, relative to the largest, and
+D's spill flag equal to the plain version's; kernel B owner wrench 2e-4
+and wildcards 1e-3 (FMA contraction and atomic summation order), its
+extras 2e-4; kernel B-ub equal to kernel B (one device function on
+bit-equal records); kernel C identical pair tables.
 """
 
 import dataclasses
@@ -80,6 +80,74 @@ def test_segred_kernel_matches_plain(bed):
         assert _rel(exact, got) <= 1e-5
 
 
+def test_segred_pair_kernel_matches_plain(bed):
+    """Both sides of a table in one launch, onto a fresh output and onto
+    a given one; an all-dead table adds nothing."""
+    cfg, state, params = bed
+    p = forces.contact_pass("sa", state.sa, state.owners, state.spheres,
+                            state.anals, params, state.time, cfg.voxel_size,
+                            cfg.force_model)
+    n = state.owners.n
+    ss, sa = state.ss, p["table"]
+    krec = forces.pack_kinematics(state.owners, world_omg=True)
+    rec_a, rec_b, _ = hertz_rows_cuda(ss, krec, float(params.h),
+                                      cfg.voxel_size, cfg.force_model)
+    sides = [(rec_a, ss.own_a, rec_b, ss.own_b_sorted, ss.perm_b),
+             (p["rec_a"], sa.own_a, p["rec_b"], sa.own_b_sorted, sa.perm_b)]
+
+    def exact(ra, ia, rb, ib, pb):
+        return (segred.seg_sum_plain(ra.double(), ia, n)
+                + segred.seg_sum_plain(rb.double(), ib, n, pb))
+
+    assert int(ss.count) < ss.cap  # a dead tail on both sides
+    acc = None
+    want = torch.zeros((n, 6), dtype=torch.float64, device="cuda")
+    for side in sides:
+        before = segred.seg_sum_pair.launches
+        got = segred.seg_sum_pair(*side, n)
+        assert segred.seg_sum_pair.launches == before + 1
+        assert _rel(exact(*side), got.double()) <= 1e-5
+        want += exact(*side)
+        ret = segred.seg_sum_pair(*side, n, out=acc)
+        assert acc is None or ret is acc
+        acc = ret
+    assert _rel(want, acc.double()) <= 1e-5
+    dead = torch.full_like(ss.own_a, -1)
+    held = acc.clone()
+    segred.seg_sum_pair(rec_a, dead, rec_b, torch.full_like(dead, n),
+                        ss.perm_b, n, out=acc)
+    assert torch.equal(acc, held)
+    assert not segred.seg_sum_pair(rec_a, dead, rec_b, dead, ss.perm_b,
+                                   n).any()
+
+
+def test_segred_kernel_skips_dead_steps():
+    """Dead rows inside a warp's 256-row span: a whole 32-row step after
+    a live one, single rows, and a tail that begins in the middle of a
+    step. A warp stops only at a group that begins with an all-dead
+    step, so these sum as the plain version does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    n, cap = 40, 1024
+    ids = torch.sort(torch.randint(0, n, (cap,), device="cuda",
+                                   generator=g)).values.to(torch.int32)
+    ids[32:64] = n    # step 1 of span 0, after a live step 0
+    ids[96:128] = -1  # step 1 of the span's second group
+    ids[300:303] = n  # rows inside a live step
+    ids[700:] = n     # the tail, from the middle of a step
+    rec = torch.randn((cap, 6), device="cuda", generator=g)
+    perm = torch.randperm(cap, device="cuda", generator=g).to(torch.int32)
+    for pm in (None, perm):
+        exact = segred.seg_sum_plain(rec.double(), ids, n, pm)
+        assert _rel(exact, segred.seg_sum_sorted(rec, ids, n, pm).double()
+                    ) <= 1e-5
+    both = segred.seg_sum_pair(rec, ids, rec, ids, perm, n).double()
+    assert _rel(segred.seg_sum_plain(rec.double(), ids, n)
+                + segred.seg_sum_plain(rec.double(), ids, n, perm),
+                both) <= 1e-5
+
+
 def test_fused_kernel_matches_plain(bed):
     cfg, state, params = bed
     krec = forces.pack_kinematics(state.owners, world_omg=True)
@@ -134,12 +202,26 @@ def test_segred_v1_kernel_matches_plain(bed):
     sparse = torch.sort(torch.randint(0, 100_000, (1024,), device="cuda",
                                       generator=g)).values.to(torch.int32)
     rec_s = torch.randn((1024, 6), device="cuda", generator=g)
-    # the SA table's B side: every live row on the floor owner
-    for r, ids, m in ((rec, sa.own_b_sorted, n), (rec_s, sparse, 100_000)):
+    # the SA table's B side (every live row on the floor owner: no
+    # spill), a sparse table that must spill, the bed's SS table (many
+    # tiles, owner runs across warps and tiles, a dead tail; spill as the
+    # plain version says), and an all-dead table (zeros out, no spill)
+    ss = state.ss
+    rec_ss = torch.randn((ss.cap, 6), device="cuda", generator=g)
+    dead = torch.full_like(sa.own_b_sorted, n)
+    for r, ids, m, must_spill in ((rec, sa.own_b_sorted, n, False),
+                                  (rec_s, sparse, 100_000, True),
+                                  (rec_ss, ss.own_b_sorted, n, None),
+                                  (rec, dead, n, False)):
         exact, spill_p = segred.seg_sum_v1_plain(r.double(), ids, m)
         got, spill = segred.seg_sum_sorted_v1(r, ids, m)
-        assert bool(spill) == bool(spill_p) == (m == 100_000)
+        assert spill.dtype == torch.bool and spill.shape == ()
+        assert bool(spill) == bool(spill_p)
+        assert must_spill is None or bool(spill) == must_spill
+        assert got.shape == (m, 6)
         assert _rel(exact, got.double()) <= 1e-5
+        if ids is dead:
+            assert not got.any()
 
 
 def test_solver_matches_cpu():

@@ -108,6 +108,15 @@ def test_uniq_overflow_flag_and_engine_growth():
     assert torch.isfinite(s.owners.vel).all()
 
 
+def _dead_rows_trail(table, n_owners):
+    """Kernel A's contract: in the A order and in the B order, no live
+    row follows a dead one."""
+    for ids in (table.own_a, table.own_b_sorted):
+        live = (ids >= 0) & (ids < n_owners)
+        n_live = int(live.sum())
+        assert n_live == int(table.count) and bool(live[:n_live].all())
+
+
 def test_uniq_survives_capacity_shrink():
     """maybe_shrink runs between refresh and steps: the head rows it keeps
     (live rows first) keep their uidx."""
@@ -118,6 +127,10 @@ def test_uniq_survives_capacity_shrink():
     new_cap = 1024  # < the build cap of 2048, > the live count
     assert 10 < int(s_u.ss.count) < new_cap
     assert bool((s_u.ss.idA[:int(s_u.ss.count)] >= 0).all())
+    n = s_u.owners.n
+    for table in (s_u.ss, s_u.sa, s_u.ss.grown(3000), s_u.ss.shrunk(new_cap),
+                  s_u.sa.grown(s_u.sa.cap + 100)):
+        _dead_rows_trail(table, n)
     s_d = s_d.replace(ss=s_d.ss.shrunk(new_cap))
     s_u = s_u.replace(ss=s_u.ss.shrunk(new_cap))
     assert s_u.ss.uidx.shape[0] == new_cap

@@ -1,6 +1,7 @@
 """The plain owner-segment sums of the port (the CPU versions of kernels
 A and D) against the JAX package's seg_sum_sorted_blocks and
-seg_sum_sorted (v1) in interpret mode.
+seg_sum_sorted (v1) in interpret mode, and the two-sided seg_sum_pair
+against the JAX package's reduce_wrench_segment over the same kernel.
 
 Tolerance: rtol 1e-5 per element, no atol. Both sides add f32 in
 different orders; the largest reading is 7.4e-6 of the element, on the
@@ -8,8 +9,13 @@ heavy owner's 2,500-row sum (4.5e-8 on the random case, 0 on the dead
 tail). Owners with no rows are 0 on both sides. The v1 cases are those
 of tests/test_pallas_segred.py (256-row tiles, 512-owner windows): a
 dense table, a dead tail, and a sparse table that must spill; the spill
-flag must agree, and so must the (then partial) sums.
+flag must agree, and so must the (then partial) sums. The pair cases
+hold each element to 1e-5 of the largest |sum| (a clump's A-side and
+B-side rows cancel to rounding, so a per-element rtol has no meaning
+there); the largest reading is 6.6e-7.
 """
+
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from dem_engine_tpu.ops.forces import reduce_wrench_segment
 from dem_engine_tpu.ops.pallas_segred import seg_sum_sorted as jax_v1
 from dem_engine_tpu.ops.pallas_segred import seg_sum_sorted_blocks
 from dem_engine_tpu_torch.ops import segred
@@ -66,6 +73,71 @@ def test_plain_through_permutation():
                                 torch.from_numpy(ids), n,
                                 perm=torch.from_numpy(perm))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5)
+
+
+def _table(seed, cap=1536, n=520, n_live=1400, heavy=900):
+    """One contact table's wrench rows in the (own_a, own_b) order: a
+    dead tail, a B owner (512) that holds `heavy` rows like the floor
+    plane, and the B-side order through perm_b."""
+    rng = np.random.default_rng(seed)
+    own_a = np.sort(rng.integers(0, n, n_live))
+    own_b = np.where(np.arange(n_live) < heavy, 512,
+                     rng.integers(0, n, n_live))
+    own_b = own_b[rng.permutation(n_live)]
+    dead = np.full(cap - n_live, n)
+    perm_b = np.concatenate([np.lexsort((own_a, own_b)),
+                             np.arange(n_live, cap)]).astype(np.int32)
+    own_a = np.concatenate([own_a, -np.ones(cap - n_live)]).astype(np.int32)
+    own_b_sorted = np.concatenate([own_b, dead])[perm_b].astype(np.int32)
+    rec_a = rng.normal(size=(cap, 6)).astype(np.float32)
+    rec_b = rng.normal(size=(cap, 6)).astype(np.float32)
+    rec_a[n_live:] = rec_b[n_live:] = 0.0
+    on_heavy = np.concatenate([own_b, dead]) == 512
+    rec_b[on_heavy] = np.abs(rec_b[on_heavy])  # same-sign rows, like weight
+    return dict(rec_a=rec_a, rec_b=rec_b, own_a=own_a,
+                own_b_sorted=own_b_sorted, perm_b=perm_b), n
+
+
+@pytest.fixture(scope="module")
+def pair_tables():
+    """Two tables of one shape, and the JAX package's sums of the first
+    and of both (reduce_wrench_segment over seg_sum_sorted_blocks in
+    interpret mode, traced once)."""
+    (t1, n), (t2, _) = _table(5), _table(6)
+
+    def as_pass(t):
+        return dict(rec_a=t["rec_a"], rec_b=t["rec_b"],
+                    table=SimpleNamespace(**t))
+
+    @jax.jit
+    def sums(a, b):
+        one = reduce_wrench_segment(n, [as_pass(a)], use_pallas=True)
+        both = reduce_wrench_segment(n, [as_pass(a), as_pass(b)],
+                                     use_pallas=True)
+        return jnp.concatenate(one, 1), jnp.concatenate(both, 1)
+
+    one, both = sums(t1, t2)
+    return t1, t2, n, np.asarray(one), np.asarray(both)
+
+
+def _pair(t, n, out=None):
+    return segred.seg_sum_pair(*(torch.from_numpy(t[k]) for k in (
+        "rec_a", "own_a", "rec_b", "own_b_sorted", "perm_b")), n, out=out)
+
+
+@pytest.mark.parametrize("case", ["one_table", "second_table_onto_out"])
+def test_pair_matches_jax_reduce(pair_tables, case):
+    t1, t2, n, ref_one, ref_both = pair_tables
+    got = _pair(t1, n)
+    ref = ref_one
+    if case == "second_table_onto_out":
+        acc = got
+        got = _pair(t2, n, out=acc)
+        assert got is acc  # added in place
+        ref = ref_both
+    assert np.abs(ref).max() > 500  # the heavy owner's sum
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
 
 
 def _v1_case(kind):
