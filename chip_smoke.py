@@ -13,7 +13,10 @@ Phases, each printing its own numbers; any failure exits nonzero:
                the card's memory rate sets, and the time of one PyTorch
                call computing the same sums where there is one; the
                segment sums in every form (A: pair, pair onto an output,
-               one side; D)
+               one side; D); C also with a count past its capacity; the
+               lists launch (unique-fetch lists of both layouts and the
+               block row starts) identical to its plain version; B-ub
+               and B also on the API's own (shrunk) table
   3 parity     the 4,096-clump bed: one refresh + 10 steps on the card
                (kernels) against the same on the CPU (plain versions),
                with rolling resistance off and with its default
@@ -28,10 +31,16 @@ Phases, each printing its own numbers; any failure exits nonzero:
                timed GetContactDetailedInfo
   6 device     torch.profiler, only after every timed run: the device time
                and launches per call of the segment sums (A: a step's two
-               pair calls, D) against their bounds
-  7 breakdown  for the main path and each API path, on a bed settled anew,
+               pair calls, D), of one C search, of B on the main path's
+               table, and of the lists launch, B-ub and B on the API's
+               table, against their bounds
+  7 uniq       the unique-fetch decision: the device time of one
+               DoDynamics chunk (refresh + K steps) with unique fetch at
+               512 and off, five alternating rounds (torch.profiler)
+  8 breakdown  for the main path and each API path, on a bed settled anew,
                one chunk: refresh and steps timed apart, then the device
-               time and launches of a step by operation
+               time and launches of a step, and of one refresh, by
+               operation
 With every phase run, the line before the last holds the kernels' JSON
 record and the one before it the card's name and power limit; the last
 line is the JSON verdict.
@@ -103,22 +112,54 @@ def device_rows(torch, fn, per=1):
     return sorted(rows, reverse=True)
 
 
-def phase_device_times(torch, n_clumps, kern, reps=10):
-    """Device time and launches per call of the segment sums (kernels A
-    and D) on the kernels phase's bed, built anew, from torch.profiler
-    over `reps` calls; the bound is held against this time, not against
-    the event median, which for a few small launches is mostly host time
-    between them. A step's sums must be one zeroing and two launches, D
-    one launch."""
-    from dem_engine_tpu_torch.ops import segred
+def phase_device_times(torch, n_clumps, k, kern, reps=10):
+    """Device time and launches per call of each kernel from
+    torch.profiler over `reps` calls: the segment sums (A, D), one C
+    search and B on the kernels phase's bed, built anew, and the lists
+    launch, B-ub and B on the API's table. The bound is held against this
+    time, not against the event median, which for a few small launches is
+    mostly host time between them. A step's sums must be one zeroing and
+    two launches, a C search and the lists each one memset and one
+    launch, each other call one launch."""
+    from dem_engine_tpu_torch.ops import binning, forces, segred, sweep
+    from dem_engine_tpu_torch.ops.fused_force import (hertz_rows_cuda,
+                                                      hertz_rows_ub_cuda)
+    from dem_engine_tpu_torch.solver import ss_search_inputs
 
     eng, state, params = kernel_bed(torch, n_clumps)
     n = state.owners.n
     tables, sa, rec_bg = segsum_inputs(eng, state, params)
-    for key, tag, fn, launches in (
-            ("A", "A, a step's two pair calls", step_sums_call(tables, n), 3),
+    cfg = eng.cfg
+    q = ss_search_inputs(state, params.replace(max_drift=torch.tensor(
+        25, dtype=torch.int32, device=DEVICE)), cfg.voxel_size)
+    S = state.spheres.n
+    tab = binning.build_sphere_table(q["pos_cd"], q["reach"], q["owner"],
+                                     q["family"], q["bin_size"], q["nb_cd"],
+                                     S)
+    h, vs, model = float(params.h), cfg.voxel_size, cfg.force_model
+    krec = forces.pack_kinematics(state.owners, world_omg=True)
+    s = api_table(n_clumps, k)
+    su, n_u = s.state.ss, s.state.owners.n
+    ub = s.engine.cfg.uniq_cap
+    krec_u = forces.pack_kinematics(s.state.owners, world_omg=True)
+    for key, tag, fn, launches, bnd in (
+            ("A", "A, a step's two pair calls", step_sums_call(tables, n), 3,
+             kern["A"]["bound"][0]),
             ("D", "D", lambda: segred.seg_sum_sorted_v1(
-                rec_bg, sa.own_b_sorted, n), 1)):
+                rec_bg, sa.own_b_sorted, n), 1, kern["D"]["bound"][0]),
+            ("C", "C, one search", lambda: sweep.sweep_table_cuda(
+                tab, S, q["family_mask"], q["nb_cd"], cfg.cap_ss), 2,
+             kern["C"]["bound"][0]),
+            ("B", "B, the main path's step launch", lambda: hertz_rows_cuda(
+                state.ss, krec, h, vs, model), 1, kern["B"]["bound"][0]),
+            ("lists", "the lists launch on the API's table",
+             lambda: forces.uniq_layout_cuda(su, n_u, ub), 2,
+             bound(*bytes_lists(su, n_u))[0]),
+            ("B-ub", "B-ub, the API's step launch", lambda: hertz_rows_ub_cuda(
+                su, krec_u, h, vs, model), 1,
+             bound(*bytes_B(su, n_u, ub=True))[0]),
+            ("B@api", "B on the API's table", lambda: hertz_rows_cuda(
+                su, krec_u, h, vs, model), 1, bound(*bytes_B(su, n_u))[0])):
         totals = device_rows(torch, lambda: [fn() for _ in range(reps)])
         if not totals:
             fail(f"{tag}: the profiler recorded no device time")
@@ -133,7 +174,6 @@ def phase_device_times(torch, n_clumps, kern, reps=10):
                 fail(f"{tag}: {seen:g} events of {name[:40]} in {reps} "
                      f"calls, {per} a call would be {reps * per}")
         dev, count = sum(r[0] for r in rows), sum(r[1] for r in rows)
-        bnd = kern[key]["bound"][0]
         print(f"[device] {tag}: {dev:.4f} ms in {count} launches ("
               + "; ".join(f"{ms * 1e3:.1f} us x{cnt} {name[:40]}, {seen:g} "
                           f"events in {reps} calls"
@@ -142,7 +182,9 @@ def phase_device_times(torch, n_clumps, kern, reps=10):
               + f"), {dev / bnd:.2f}x the bound {bnd:.4f} ms", flush=True)
         if count != launches:
             fail(f"{tag}: {count} launches, its design states {launches}")
+        kern.setdefault(key, {})
         kern[key]["device_ms"], kern[key]["device_launches"] = dev, count
+    del s, su
 
 
 def host_us(torch, fn, reps=200):
@@ -171,12 +213,13 @@ def bound(bytes_moved, flops):
 
 def counters():
     """The launch count of every kernel wrapper, by kernel key."""
-    from dem_engine_tpu_torch.ops import fused_force, segred, sweep
+    from dem_engine_tpu_torch.ops import forces, fused_force, segred, sweep
 
     return {"A": segred.seg_sum_pair, "B": fused_force.hertz_rows_cuda,
             "B-extras": fused_force.hertz_extras_cuda,
             "B-ub": fused_force.hertz_rows_ub_cuda,
-            "C": sweep.sweep_table_cuda, "D": segred.seg_sum_sorted_v1}
+            "C": sweep.sweep_table_cuda, "D": segred.seg_sum_sorted_v1,
+            "lists": forces.uniq_layout_cuda}
 
 
 def reset_counts():
@@ -283,17 +326,37 @@ def bytes_A(ids, n, perm=None):
 
 def bytes_B(ss, n_owners, extras=False, ub=False):
     """Bytes and operations of one fused force pass: live rows stream
-    their statics, wildcards and B owner index (B-ub: uidx and own_a, and
-    the unique lists once), dead rows only their live marker; each owner
-    record is read once; every row's outputs are written."""
+    their statics, wildcards and one index (B: own_b; B-ub: uidx, and the
+    unique lists and block row starts once), dead rows only their live
+    marker (B-ub: not even that); each owner record is read once; every
+    row's outputs are written."""
     cap = ss.cap
     live = int((ss.fstat_a[0] >= 0).sum())
     wc = 16 if ss.wildcards else 0
-    b = live * (64 + wc + 4) + (cap - live) * 4 + n_owners * 64
+    b = live * (64 + wc + 4) + n_owners * 64
     b += cap * (48 + wc) + (cap * 36 if extras else 0)
     if ub:
-        b += live * 4 + ss.uniq_a.shape[0] * 4
+        b += ss.uniq_a.shape[0] * 4 + ss.blk_start.shape[0] * 4
+    else:
+        b += (cap - live) * 4
     return b, live * 250
+
+
+def bytes_lists(ss, n_owners):
+    """Bytes of the lists launch: each live row's own_a, own_b,
+    own_b_sorted and perm_b in; uidx for every row, the lists, the block
+    row starts and uniq_max out."""
+    live = int((ss.own_a >= 0).sum())
+    n_blocks = -(-n_owners // 128)
+    return (live * 16 + ss.cap * 4 + ss.uniq_a.shape[0] * 4
+            + (n_blocks + 1) * 4 + 4), 0
+
+
+def bytes_C(tab, cap, hits):
+    """Bytes and operations of one C search: the sorted table's 32-byte
+    records, bin ids and 3-D bin indices, the family mask and the grid
+    in; the pair table and the count out; ~10 operations per hit."""
+    return tab.n_rows * 48 + 256 * 256 + 12 + cap * 8 + 4, hits * 10
 
 
 def index_add_call(torch, rec, ids, n, perm=None):
@@ -309,7 +372,7 @@ def index_add_call(torch, rec, ids, n, perm=None):
     return call
 
 
-def phase_kernels(torch, n_clumps):
+def phase_kernels(torch, n_clumps, k):
     """Each kernel against its plain version on the same card inputs."""
     import dataclasses
 
@@ -335,24 +398,27 @@ def phase_kernels(torch, n_clumps):
                                      q["family"], q["bin_size"], q["nb_cd"],
                                      S)
     mpb = int(tab.max_occ)
+    same = {}
+    for cap in (cfg.cap_ss, 1000):  # the bed's capacity, and a count past
+        ka, kb, kn = sweep.sweep_table_cuda(tab, S, q["family_mask"],
+                                            q["nb_cd"], cap)
+        pa, pb, pn = binning.sweep_table(tab, S, q["family_mask"],
+                                         q["nb_cd"], cap, mpb)
+        same[cap] = (int(kn) == int(pn) and torch.equal(ka, pa)
+                     and torch.equal(kb, pb))
     ka, kb, kn = sweep.sweep_table_cuda(tab, S, q["family_mask"],
                                         q["nb_cd"], cfg.cap_ss)
-    pa, pb, pn = binning.sweep_table(tab, S, q["family_mask"], q["nb_cd"],
-                                     cfg.cap_ss, mpb)
-    same = (int(kn) == int(pn) and torch.equal(ka, pa)
-            and torch.equal(kb, pb))
     ms = cuda_ms(torch, lambda: sweep.sweep_table_cuda(
         tab, S, q["family_mask"], q["nb_cd"], cfg.cap_ss))
     pms = cuda_ms(torch, lambda: binning.sweep_table(
         tab, S, q["family_mask"], q["nb_cd"], cfg.cap_ss, mpb))
-    # sorted records (28 B), bin ids, bin coordinates in; the pair table out
-    bnd = bound(tab.n_rows * 44 + 256 * 256 + cfg.cap_ss * 8,
-                int(kn) * 10)
+    bnd = bound(*bytes_C(tab, cfg.cap_ss, int(kn)))
     print(f"[kernels] C sweep: spheres {S} pairs {int(kn)} (plain "
-          f"{int(pn)}) max bin occupancy {mpb} identical={same} "
-          f"kernel {ms:.3f} ms plain {pms:.3f} ms bound {bnd[0]:.4f} ms "
-          f"({bnd[1]})", flush=True)
-    if not same:
+          f"{int(pn)}) max bin occupancy {mpb} identical={same[cfg.cap_ss]}"
+          f" (pair table and count), with cap 1000 (count past it) "
+          f"identical={same[1000]}; kernel {ms:.3f} ms plain {pms:.3f} ms "
+          f"bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+    if not all(same.values()):
         fail("kernel C pair table differs from the plain sweep")
     out["C"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms, bound=bnd,
                     library_ms=None)
@@ -399,10 +465,10 @@ def phase_kernels(torch, n_clumps):
                                    model, krec_w, extras=True)
     errs, abs_x = {}, 0.0
     for name in ("force", "torque", "cpoint"):
-        k, pl = getattr(xk, name), getattr(xp, name)
-        errs[name] = rel_err(pl[live].cpu(), k[live].cpu())
-        abs_x = max(abs_x, float((k - pl).abs().max()))
-        if k[~live].any():
+        kx, pl = getattr(xk, name), getattr(xp, name)
+        errs[name] = rel_err(pl[live].cpu(), kx[live].cpu())
+        abs_x = max(abs_x, float((kx - pl).abs().max()))
+        if kx[~live].any():
             fail(f"kernel B-extras left a dead row's {name} nonzero")
     ms = cuda_ms(torch, lambda: hertz_extras_cuda(ss, krec_w, h,
                                                   cfg.voxel_size, model))
@@ -429,7 +495,6 @@ def phase_kernels(torch, n_clumps):
     direct = hertz_rows_cuda(su, krec_w, h, cfg.voxel_size, model)
     via_ub = hertz_rows_ub_cuda(su, krec_w, h, cfg.voxel_size, model)
     identical = all(torch.equal(a, b) for a, b in zip(direct, via_ub))
-    e_direct = max(rel_err(a.cpu(), b.cpu()) for a, b in zip(direct, via_ub))
     fu, tu, tab_u = fused_step_ss(su, st_u.owners, h, cfg.voxel_size, model,
                                   krec_w)
     fpu, tpu, tab_pu = fused_step_ss_plain(su, st_u.owners, h,
@@ -452,17 +517,67 @@ def phase_kernels(torch, n_clumps):
     print(f"[kernels] B-ub unique fetch: {n_blocks_of(n)} blocks x {ub} "
           f"slots, "
           f"largest unique count {int(su.uniq_max)}; against kernel B "
-          f"identical={identical} (err {e_direct:.2e}, tol 1e-6); against "
+          f"identical={identical} (must be); against "
           f"its plain version owner force err {e_f:.2e} torque err "
           f"{e_t:.2e} (tol 2e-4) wildcard err {e_wc:.2e} (tol 1e-3); "
           f"kernel {ms:.3f} ms plain {pms:.3f} ms bound {bnd[0]:.4f} ms "
           f"({bnd[1]})", flush=True)
-    if not (e_direct <= 1e-6 and e_f <= 2e-4 and e_t <= 2e-4
-            and e_wc <= 1e-3):
+    if not (identical and e_f <= 2e-4 and e_t <= 2e-4 and e_wc <= 1e-3):
         fail("kernel B-ub disagrees with kernel B or its plain version")
+    del direct, via_ub, tab_u, tab_pu
+
+    # --- the lists launch, B-ub and B on the API's own (shrunk) table -----
+    s_api = api_table(n_clumps, k)
+    for tag, t, m, width in (("the bed's table", su, n, ub),
+                             ("the API's table", s_api.state.ss,
+                              s_api.state.owners.n,
+                              s_api.engine.cfg.uniq_cap)):
+        got = forces.uniq_layout_cuda(t, m, width)
+        want = forces.uniq_layout_plain(t, m, width)
+        same_l = {nm: torch.equal(g, w) for nm, g, w in zip(
+            ("uidx", "uniq_a", "uniq_max", "blk_start"), got, want)}
+        abs_l = max(float((g.double() - w.double()).abs().max())
+                    for g, w in zip(got, want))
+        ms = cuda_ms(torch, lambda: forces.uniq_layout_cuda(t, m, width))
+        pms = cuda_ms(torch, lambda: forces.uniq_layout_plain(t, m, width))
+        bnd = bound(*bytes_lists(t, m))
+        print(f"[kernels] lists launch on {tag}: rows {t.cap} live "
+              f"{int(t.count)}, {n_blocks_of(m)} blocks x {width} slots, "
+              f"largest unique count {int(got[2])}, largest block "
+              f"{int(got[3].diff().max())} rows; identical to the plain "
+              f"_uniq_layout (both layouts) and searchsorted: {same_l}; "
+              f"kernel {ms:.3f} ms plain {pms:.3f} ms bound {bnd[0]:.4f} ms "
+              f"({bnd[1]})", flush=True)
+        if not all(same_l.values()):
+            fail(f"the lists launch differs from its plain version on {tag}")
+        out["lists"] = dict(max_abs_err=abs_l, ms=ms, plain_ms=pms,
+                            bound=bnd, library_ms=None)
+    krec_t = forces.pack_kinematics(s_api.state.owners, world_omg=True)
+    args = (t, krec_t, h, cfg.voxel_size, model)
+    ub_rows, b_rows = hertz_rows_ub_cuda(*args), hertz_rows_cuda(*args)
+    identical = all(torch.equal(a, b) for a, b in zip(ub_rows, b_rows))
+    live_t = t.fstat_a[0] >= 0
+    oat = torch.where(live_t, t.own_a, 0).long()
+    wct = torch.stack([t.wildcards[nm] for nm in names])
+    plain_u = hertz_rows(t.fstat_a, wct, krec_t[oat],
+                         uniq_records(t, krec_t), h, cfg.voxel_size, True)
+    abs_u = max(float((a - b).abs().max()) for a, b in zip(plain_u, ub_rows))
+    ms = cuda_ms(torch, lambda: hertz_rows_ub_cuda(*args))
+    ms_b = cuda_ms(torch, lambda: hertz_rows_cuda(*args))
+    pms = cuda_ms(torch, lambda: hertz_rows(
+        t.fstat_a, wct, krec_t[oat], uniq_records(t, krec_t), h,
+        cfg.voxel_size, True))
+    bnd, bnd_b = bound(*bytes_B(t, m, ub=True)), bound(*bytes_B(t, m))
+    print(f"[kernels] B-ub on the API's table: rows {t.cap} live "
+          f"{int(t.count)}; against kernel B identical={identical}, against "
+          f"its plain version max abs err {abs_u:.3e}; B-ub {ms:.3f} ms "
+          f"(bound {bnd[0]:.4f} ms), B {ms_b:.3f} ms (bound {bnd_b[0]:.4f} "
+          f"ms) by events; plain {pms:.3f} ms", flush=True)
+    if not identical:
+        fail("kernel B-ub differs from kernel B on the API's table")
     out["B-ub"] = dict(max_abs_err=abs_u, ms=ms, plain_ms=pms, bound=bnd,
                        library_ms=None)
-    del eng_u, st_u, su, direct, via_ub, tab_u, tab_pu
+    del eng_u, st_u, su, t, ub_rows, b_rows, plain_u, s_api
 
     # --- A: owner-segment sums, the two pair calls of one step ------------
     tables, sa, rec_bg = segsum_inputs(eng, state, params)
@@ -530,12 +645,12 @@ def phase_kernels(torch, n_clumps):
     # more owners than the 256-owner window, so it must spill)
     errs_d, abs_d, spills = [], 0.0, []
     for rec, ids in ((rec_bg, sa.own_b_sorted), (tables[1][0], sa.own_a)):
-        k, k_spill = segred.seg_sum_sorted_v1(rec, ids, n)
+        kd, k_spill = segred.seg_sum_sorted_v1(rec, ids, n)
         pl, p_spill = segred.seg_sum_v1_plain(rec, ids, n)
         exact, _ = segred.seg_sum_v1_plain(rec.double(), ids, n)
         scale = max(float(exact.abs().max()), 1e-30)
-        errs_d.append(float((k.double() - exact).abs().max()) / scale)
-        abs_d = max(abs_d, float((k - pl).abs().max()))
+        errs_d.append(float((kd.double() - exact).abs().max()) / scale)
+        abs_d = max(abs_d, float((kd - pl).abs().max()))
         spills.append((bool(k_spill), bool(p_spill)))
     ms = cuda_ms(torch, lambda: segred.seg_sum_sorted_v1(
         rec_bg, sa.own_b_sorted, n))
@@ -690,7 +805,7 @@ def phase_main(torch, n_clumps, k, warm, steps):
           f"{int(state.sa.count)} (cap {eng.cfg.cap_sa}); peak memory "
           f"{mem / 2**30:.2f} GiB", flush=True)
     expect = {"A": 2 * steps, "B": steps, "B-extras": 0, "B-ub": 0,
-              "C": refreshes, "D": 0}
+              "C": refreshes, "D": 0, "lists": 0}
     print(f"[main] launches {launches}, expected {expect} "
           f"({refreshes} refresh attempts)", flush=True)
     if launches != expect or refreshes < steps // k:
@@ -702,7 +817,8 @@ def phase_main(torch, n_clumps, k, warm, steps):
 def phase_breakdown(torch, eng, state, params, k, tag="breakdown"):
     """Where one chunk's time goes: the refresh and the K steps timed
     apart (synchronised host clock), then the device time of 5 steps by
-    operation from torch.profiler, against their unprofiled wall time."""
+    operation from torch.profiler, against their unprofiled wall time,
+    and of one more refresh by operation."""
     from dem_engine_tpu_torch.solver import run_steps
 
     params_k = params.replace(max_drift=torch.tensor(
@@ -735,10 +851,28 @@ def phase_breakdown(torch, eng, state, params, k, tag="breakdown"):
     for ms, cnt, name in rows[:8]:
         print(f"[{tag}]   {ms:.3f} ms/step  x{cnt:g}  {name[:70]}",
               flush=True)
+    rows = device_rows(torch, lambda: eng.refresh(state, params_k))
+    print(f"[{tag}] one refresh: device busy {sum(r[0] for r in rows):.3f} "
+          f"ms in {sum(r[1] for r in rows):g} launches", flush=True)
+    for ms, cnt, name in rows[:8]:
+        print(f"[{tag}]   {ms:.3f} ms/refresh  x{cnt:g}  {name[:70]}",
+              flush=True)
 
 
 API_H = 5e-6  # the API runs' step size
-API_RUNS = (("unique fetch 512", None), ("unique fetch off", 0))
+API_DEFAULT_UNIQ = 0  # DEMSolver's unique-fetch width on the card
+# the API's default first (it also runs the contact query), then the
+# other setting, which drives kernel B-ub and the lists launch
+API_RUNS = (("default, unique fetch off", None), ("unique fetch 512", 512))
+
+
+def api_table(n_clumps, k):
+    """A DEMSolver with unique fetch at 512 after one chunk (its first
+    refresh and maybe_shrink): its SS table is the one the API's steps
+    run kernel B-ub on."""
+    s = api_solver(n_clumps, k, 512)
+    s.DoDynamics(k * API_H)
+    return s
 
 
 def api_solver(n_clumps, k, uniq):
@@ -766,13 +900,46 @@ def api_solver(n_clumps, k, uniq):
     return s
 
 
+def phase_uniq(torch, n_clumps, k, runs=5):
+    """Does unique fetch pay on this card? The device time of one
+    DoDynamics chunk (refresh + K steps; torch.profiler) of two solvers
+    on the same bed, unique fetch at 512 and off, in `runs` alternating
+    rounds. By the rule written before the first run, 512 is ahead when
+    its mean is lower than off's by more than the larger of the two
+    spreads (max - min); only then does the API's default stay 512."""
+    solvers = {}
+    for label, uniq in (("512", 512), ("off", 0)):
+        torch.cuda.empty_cache()
+        solvers[label] = api_solver(n_clumps, k, uniq)
+        solvers[label].DoDynamics(k * API_H)  # first refresh and shrink
+    dev = {label: [] for label in solvers}
+    for _ in range(runs):
+        for label, s in solvers.items():
+            rows = device_rows(torch, lambda s=s: s.DoDynamics(k * API_H))
+            if not rows:
+                fail("the profiler recorded no device time for a chunk")
+            dev[label].append(sum(r[0] for r in rows))
+    mean = {lb: float(np.mean(v)) for lb, v in dev.items()}
+    spread = max(max(v) - min(v) for v in dev.values())
+    ahead = mean["off"] - mean["512"] > spread
+    print(f"[uniq] device ms of one chunk (refresh + {k} steps), {runs} "
+          f"alternating rounds: "
+          + "; ".join(f"{lb}: " + ", ".join(f"{x:.3f}" for x in v)
+                      + f" (mean {mean[lb]:.3f})" for lb, v in dev.items())
+          + f"; larger spread {spread:.3f} ms; 512 ahead by the rule: "
+          f"{ahead}", flush=True)
+    del solvers
+    torch.cuda.empty_cache()
+
+
 def phase_api(torch, n_clumps, k, steps):
     """DoDynamics through DEMSolver, with unique fetch at its default and
-    off; then one contact query. Returns the launch counts of the default
-    run's steps and of the query."""
+    at the other setting; then one contact query on the default run.
+    Returns the launch counts of the default run's steps ("steps"), of
+    the run with unique fetch on ("ub") and of the query."""
     h = API_H
     counts = {}
-    for label, uniq in API_RUNS:
+    for i, (label, uniq) in enumerate(API_RUNS):
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         s = api_solver(n_clumps, k, uniq)
@@ -798,17 +965,21 @@ def phase_api(torch, n_clumps, k, steps):
               f"sa.count {int(st.sa.count)}; caps after maybe_shrink "
               f"cap_ss {cfg.cap_ss} cap_sa {cfg.cap_sa}, uniq_cap "
               f"{cfg.uniq_cap} ({s.engine.shrinks} shrinks)", flush=True)
-        on = uniq is None
+        on = cfg.uniq_cap > 0
         expect = {"A": 2 * steps, "B": 0 if on else steps, "B-extras": 0,
-                  "B-ub": steps if on else 0, "C": refreshes, "D": 0}
+                  "B-ub": steps if on else 0, "C": refreshes, "D": 0,
+                  "lists": refreshes if on else 0}
         print(f"[api] launches {launches}, expected {expect} "
               f"({refreshes} refresh attempts)", flush=True)
         if launches != expect or refreshes < steps // k:
             fail(f"launch counts do not match the API path ({label})")
-        if on and not 0 < cfg.uniq_cap <= 2048:
-            fail("unique fetch is off on the API's default path")
+        if on != ((API_DEFAULT_UNIQ if uniq is None else uniq) > 0):
+            fail(f"unique fetch is {'on' if on else 'off'} in the run "
+                 f"{label!r}")
         physics(torch, st, cfg.voxel_size, "api")
         if on:
+            counts["ub"] = launches
+        if i == 0:
             counts["steps"] = launches
             reset_counts()
             t0 = time.perf_counter()
@@ -844,8 +1015,10 @@ KERNELS = {
           "dem_engine_tpu/ops/pallas_sweep3.py:179"),
     "D": ("segment_sum_window", "dem_engine_tpu_torch/csrc/segred_v1.cu",
           "dem_engine_tpu/ops/pallas_segred.py:206"),
+    "lists": ("unique_fetch_lists", "dem_engine_tpu_torch/csrc/uniq_layout.cu",
+              "dem_engine_tpu/ops/forces.py:165 _uniq_layout"),
 }
-PHASES = ("kernels", "parity", "main", "breakdown", "api")
+PHASES = ("kernels", "parity", "main", "breakdown", "api", "uniq")
 
 
 def main():
@@ -871,7 +1044,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     card = phase_env(torch)
     phase_build()
-    kern = (phase_kernels(torch, args.clumps) if "kernels" in phases
+    kern = (phase_kernels(torch, args.clumps, args.k) if "kernels" in phases
             else None)
     if "parity" in phases:
         phase_parity(torch, args.parity_clumps)
@@ -885,7 +1058,9 @@ def main():
     # profile in its process; the breakdowns settle their beds anew, so
     # no timed run shares the card's memory with them either
     if kern:
-        phase_device_times(torch, args.clumps, kern)
+        phase_device_times(torch, args.clumps, args.k, kern)
+    if "uniq" in phases:
+        phase_uniq(torch, args.clumps, args.k)
     if "breakdown" in phases and "main" in phases:
         phase_breakdown(torch, *settled_case(torch, args.clumps, args.warm,
                                              update_freq=args.k), args.k)
@@ -900,10 +1075,11 @@ def main():
     print(card)
     if kern and main_counts and api_counts:
         # each kernel's launches on the path that runs it: A, B and C on
-        # the main path, B-ub on the API's default steps, B-extras in the
-        # contact query; D has no caller
+        # the main path, B-ub and the lists launch on the API's steps with
+        # unique fetch on, B-extras in the contact query; D has no caller
         launches = dict(main_counts, **{
-            "B-ub": api_counts["steps"]["B-ub"],
+            "B-ub": api_counts["ub"]["B-ub"],
+            "lists": api_counts["ub"]["lists"],
             "B-extras": api_counts["query"]["B-extras"]})
         record = {"kernels": [
             {"name": name, "route": "cuda", "source": source,

@@ -33,7 +33,7 @@ _INT = ctypes.c_int
 _F32 = ctypes.c_float
 
 # C entry points: name -> argument types (every entry returns int, the
-# cudaError_t of its launches)
+# cudaError_t of its launches, but dem_sweep_tile, kernel C's tile size)
 SIGNATURES = {
     # segred.cu: rec_a, ids_a, perm_a (nullable), cap_a, rec_b, ids_b,
     #   perm_b (nullable), cap_b, n_owners, out, zero_out, stream
@@ -47,19 +47,20 @@ SIGNATURES = {
     #   ext_cp (the three extras nullable), stream
     "dem_fused_hertz": [_P, _INT, _P, _P, _P, _P, _P, _P, _F32, _F32,
                         _INT, _P, _P, _P, _P, _P, _P, _P],
-    # fused_force.cu: fstat, cap, wx, wy, wz, wt, krec, n_owners, own_a,
-    #   uidx, uniq, ub, h, voxel_size, with_friction, rec_a, rec_b,
-    #   wc_out, ext_f, ext_t, ext_cp, stream
+    # fused_force.cu: fstat, cap, wx, wy, wz, wt, krec, n_owners,
+    #   blk_start, uidx, uniq, ub, h, voxel_size, with_friction, rec_a,
+    #   rec_b, wc_out, ext_f, ext_t, ext_cp, stream
     "dem_fused_hertz_ub": [_P, _INT, _P, _P, _P, _P, _P, _INT, _P, _P, _P,
                            _INT, _F32, _F32, _INT, _P, _P, _P, _P, _P, _P,
                            _P],
-    # sweep.cu: rec, sorted_bin, idx3, fam_mask, spad, n_spheres,
-    #   nb0, nb1, nb2, cnt, stream
-    "dem_sweep_count": [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _P,
+    # sweep.cu: rec, sorted_bin, idx3, fam_mask, nb, spad, n_spheres,
+    #   cap, buf (outA, outB, tile status, ticket, count), stream
+    "dem_sweep": [_P, _P, _P, _P, _P, _INT, _INT, _INT, _P, _P],
+    "dem_sweep_tile": [],
+    # uniq_layout.cu: own_a, own_b, own_b_sorted, perm_b, cap, n_owners,
+    #   ub, uidx, uniq, blk_start, umax, stream
+    "dem_uniq_layout": [_P, _P, _P, _P, _INT, _INT, _INT, _P, _P, _P, _P,
                         _P],
-    # sweep.cu: ... as count, then base, cap, outA, outB, stream
-    "dem_sweep_write": [_P, _P, _P, _P, _INT, _INT, _INT, _INT, _INT, _P,
-                        _INT, _P, _P, _P],
 }
 
 _lock = threading.Lock()

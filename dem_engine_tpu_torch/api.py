@@ -21,10 +21,12 @@ Typical use:
     solver.Initialize()
     solver.DoDynamics(1.0)
 
-On a CUDA device the step runs kernels B or B-ub (unique-fetch, on by
-default at 512 rows per owner block), A and C, and the contact queries
-run kernel B with its extras outputs; on the CPU the plain versions run
-and unique-fetch is off, as the JAX package runs on its CPU.
+On a CUDA device the step runs kernels B, A and C, and the contact
+queries run kernel B with its extras outputs. Unique fetch (kernel B-ub
+and its lists launch at each refresh) is off by default on the card: it
+did not beat kernel B on the H100, whose L2 already serves B's gathers.
+``SetFusedUniqueFetch`` turns it on. On the CPU the plain versions run
+and unique fetch is off, as the JAX package runs on its CPU.
 """
 
 from __future__ import annotations
@@ -133,7 +135,7 @@ class DEMSolver:
         self._error_out_vel = defines.DEFAULT_ERROR_OUT_VEL
         self._error_out_avg_contacts = defines.DEFAULT_ERROR_OUT_AVG_CONTACTS
         self._verbosity = Verbosity.INFO
-        self._uniq_cap = 512
+        self._uniq_cap = 0  # unique fetch off unless SetFusedUniqueFetch
         # staging
         self._materials: List[DEMMaterial] = []
         self._pair_overrides: Dict[tuple, float] = {}
@@ -207,7 +209,7 @@ class DEMSolver:
         block of 128 owners the step reads each distinct other owner's
         record once. `cap` bounds each block's list; it doubles on
         overflow and falls back to kernel B past 2048. Call before
-        Initialize; 0 disables. On the CPU it is off."""
+        Initialize; 0 (the default) disables. On the CPU it is off."""
         self._uniq_cap = int(cap)
 
     def SetExpandSafetyMultiplier(self, m: float):

@@ -11,7 +11,8 @@ Layouts differ in two places: the port's SS table always carries the
 fused-pass record ``fstat_a`` and no wide ``statics``, and of the JAX
 package's unique-fetch fields it keeps the A layout's (``uidx``,
 ``uniq_a``) and ``uniq_max``, since its kernel computes each contact
-once. A JAX SS table
+once, and adds the A layout's block row starts (``blk_start``), which the
+JAX package does not keep. A JAX SS table
 that was built without the fused layout converts only while it holds no
 live contact (then the fused layout is simply the empty one).
 """
@@ -25,6 +26,7 @@ import torch
 
 from .defines import F, I, TimeIntegrator
 from .models import HertzianForceModel, HertzianFrictionlessForceModel
+from .ops.forces import block_starts
 from .state import (
     FSTAT_W,
     Analyticals,
@@ -108,6 +110,7 @@ def table_from_numpy(t, device, fused=False) -> ContactTable:
         uidx=_t(_get(t, "uidx"), device, F),
         uniq_a=_t(_get(t, "uniq_a"), device, I),
         uniq_max=_t(_get(t, "uniq_max"), device, I),
+        blk_start=torch.zeros((0,), dtype=I, device=device),
     )
     if not fused:
         return ContactTable(
@@ -136,12 +139,17 @@ def table_from_numpy(t, device, fused=False) -> ContactTable:
 
 
 def state_from_numpy(s, device) -> SimState:
+    owners = owners_from_numpy(_get(s, "owners"), device)
+    ss = table_from_numpy(_get(s, "ss"), device, fused=True)
+    if ss.uniq_a.shape[0]:
+        # the JAX table has no row starts: its kernel searches own_a
+        ss = ss.replace(blk_start=block_starts(ss.own_a, owners.n))
     return SimState(
-        owners=owners_from_numpy(_get(s, "owners"), device),
+        owners=owners,
         spheres=spheres_from_numpy(_get(s, "spheres"), device),
         tris=triangles_from_numpy(_get(s, "tris"), device),
         anals=analyticals_from_numpy(_get(s, "anals"), device),
-        ss=table_from_numpy(_get(s, "ss"), device, fused=True),
+        ss=ss,
         st=table_from_numpy(_get(s, "st"), device),
         sa=table_from_numpy(_get(s, "sa"), device),
         time=_t(_get(s, "time"), device, F),

@@ -29,16 +29,34 @@
 //
 // B-ub keeps what the TPU `ub` variant keeps out of device memory: the
 // per-contact random gather of the B record becomes one gather per
-// distinct (block, B owner). One block per OB = 128 owners of the A side
-// finds its row range by binary search of own_a (dead rows, own_a = -1,
-// trail and search as +inf), copies its <= 128 A records and its UB unique
-// B records (ContactTable.uniq_a; 32 KB at UB = 512, 128 KB at 2048, so
-// dynamic shared memory above 48 KB) into shared memory, then strides over
-// its rows reading the B record at smem[uidx[row]]. Blocks at the front
-// of the grid, one per kTailRows rows of capacity, zero the dead tail's
-// outputs: at the front they run in the first wave, spread over the SMs;
-// a table may hold more dead rows than live ones. Both kernels run
-// hertz_row on bit-equal records, so their outputs are bit-equal.
+// distinct (block, B owner). On this card that saves no device-memory
+// bytes: krec (262,145 owners x 64 B = 16.8 MB) fits in the 50 MB L2, so
+// kernel B's gathers are already L2 hits, and B-ub is bounded like B, by
+// the rows' streamed statics, wildcards and outputs. What it must not do is
+// add latency in front of them. Its first form did: one block per 128 A
+// owners ran two binary searches of own_a, filled 40 KB of shared memory
+// and synchronised before its first row, and dead-tail blocks searched
+// again. The design now: persistent CTAs (three per SM, 256 threads) walk
+// the owner blocks, CTA c taking blocks c, c + G, c + 2G, ... so that the
+// CTAs stream neighbouring rows of the field-major arrays at any moment, as
+// kernel B's grid does (a contiguous range per CTA read 8 % slower). Each
+// block's rows [blk_start[b], blk_start[b+1]) come from the lists launch
+// (csrc/uniq_layout.cu) instead of a search. A two-stage shared-memory
+// ring holds a block's unique B records (the first kStageB = 384 list
+// slots, 24 KB, copied only where a slot holds an owner); block b + G's
+// records arrive by cp.async while block b's rows run, and
+// cp.async.wait_group plus one barrier per block gate them. A records come
+// through L1: a block's rows share its 128 A owners (staging them as well
+// read the same). A row whose rank is past kStageB (the bed's blocks hold
+// at most 319 distinct B owners) reads its record through L2. Each CTA
+// first zeroes its share of the dead tail [blk_start[NB], cap), while its
+// first block's copies land. Both kernels run hertz_row on bit-equal
+// records, so their outputs are bit-equal. B-ub still trails B (0.145
+// against 0.128 ms of device time on the API's table, H100 80GB HBM3 at
+// 700 W), and not for its row shares: giving each CTA an equal share of
+// rows in 256-row chunks, with a tagged ring of blocks, read slower (0.154
+// against 0.144 ms in one run). The barrier per block is untested as the
+// cause.
 //
 // The math follows dem_engine_tpu/models/hertz.py with the refresh-time
 // premix of forces.finalize_table (m_eff, t_col_eff, E_eff, G_eff, beta in
@@ -48,7 +66,16 @@
 
 #include <cuda_runtime.h>
 
-#include <climits>
+// build-time switches of B-ub (tools/redesign_variants.py builds others)
+#ifndef UB_STAGE_B
+#define UB_STAGE_B 384  // unique B records staged per owner block
+#endif
+#ifndef UB_THREADS
+#define UB_THREADS 256  // threads of a persistent CTA
+#endif
+#ifndef UB_CTAS_PER_SM
+#define UB_CTAS_PER_SM 3  // persistent CTAs per SM
+#endif
 
 namespace {
 
@@ -56,8 +83,10 @@ constexpr float kTiny = 1e-12f;
 constexpr float kTwoSqrt56 = 1.8257418583505538f;  // 2 * sqrt(5/6)
 constexpr float kTwoThirds = 0.6666666666666666f;
 constexpr int kFstatW = 16;
-constexpr int kOB = 128;        // A owners per block of B-ub
-constexpr int kTailRows = 4096;  // dead-tail rows per zeroing block of B-ub
+constexpr int kOB = 128;         // A owners per block of B-ub
+constexpr int kStageB = UB_STAGE_B;        // unique B records staged per block
+constexpr int kUbThreads = UB_THREADS;     // threads of a persistent B-ub CTA
+constexpr int kUbCtasPerSM = UB_CTAS_PER_SM;  // persistent B-ub CTAs per SM
 
 struct V3 {
   float x, y, z;
@@ -285,71 +314,98 @@ __global__ void fused_hertz_kernel(
   hertz_row(s, A, B, w0, w1, w2, w3, h, vs, with_friction, o, j, cap);
 }
 
-// first row whose owner is >= key; dead rows (own_a < 0) count as +inf
-__device__ int lower_bound_own(const int* __restrict__ own_a, int cap,
-                               int key) {
-  int lo = 0, hi = cap;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    const int v = __ldg(own_a + mid);
-    if ((v < 0 ? INT_MAX : v) < key) lo = mid + 1; else hi = mid;
-  }
-  return lo;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-__global__ void fused_hertz_ub_kernel(
+struct UbStage {
+  float4 b[4 * kStageB];  // the block's first kStageB unique B records
+};
+
+// list slots a thread copies into a stage: slot (tid / 4) + kListStride k
+constexpr int kListStride = kUbThreads / 4;
+constexpr int kListPer = kStageB / kListStride;
+
+// issue the cp.async copies of the B records of the list slots `lv` (one
+// per kListStride-th slot from this thread's) into `st`, skipping empty
+// slots
+__device__ __forceinline__ void ub_stage(UbStage& st,
+                                         const float4* __restrict__ k4,
+                                         int n_owners,
+                                         const int (&lv)[kListPer]) {
+#pragma unroll
+  for (int k = 0; k < kListPer; ++k) {
+    const int t = threadIdx.x + k * kUbThreads;
+    if (lv[k] < n_owners) cp_async16(&st.b[t], k4 + 4LL * lv[k] + (t & 3));
+  }
+  cp_async_commit();
+}
+
+__device__ __forceinline__ void ub_list(const int* __restrict__ uniq,
+                                        int blk, int ub, int n_list,
+                                        int n_owners, int (&lv)[kListPer]) {
+#pragma unroll
+  for (int k = 0; k < kListPer; ++k) {
+    const int e = (threadIdx.x >> 2) + k * kListStride;
+    lv[k] = e < n_list ? __ldg(uniq + (long long)blk * ub + e) : n_owners;
+  }
+}
+
+__global__ void __launch_bounds__(kUbThreads, kUbCtasPerSM)
+fused_hertz_ub_kernel(
     const float* __restrict__ fstat, int cap, const float* __restrict__ wx,
     const float* __restrict__ wy, const float* __restrict__ wz,
     const float* __restrict__ wt, const float* __restrict__ krec,
-    int n_owners, const int* __restrict__ own_a,
+    int n_owners, const int* __restrict__ blk_start,
     const float* __restrict__ uidx, const int* __restrict__ uniq, int ub,
-    int n_tail, float h, float vs, int with_friction, Outs o) {
-  extern __shared__ float4 smem[];  // A records (kOB), then UB records
-  __shared__ int range[2];
-  if (blockIdx.x < n_tail) {
-    // tail blocks, first in the grid so that they run in its first wave:
-    // zero the outputs of the dead rows
-    if (threadIdx.x == 0) range[0] = lower_bound_own(own_a, cap, n_owners);
-    __syncthreads();
-    const long long stride = (long long)n_tail * blockDim.x;
-    for (long long j = range[0] + (long long)blockIdx.x * blockDim.x +
-                       threadIdx.x;
-         j < cap; j += stride) {
-      store_dead(o, j, cap, with_friction);
-    }
-    return;
-  }
-  const int blk = blockIdx.x - n_tail;
-  const int lo_own = blk * kOB;
-  const int hi_own = min(lo_own + kOB, n_owners);
-  if (threadIdx.x < 2) {
-    range[threadIdx.x] =
-        lower_bound_own(own_a, cap, threadIdx.x == 0 ? lo_own : hi_own);
-  }
+    int n_blocks, float h, float vs, int with_friction, Outs o) {
+  extern __shared__ float4 smem[];
+  UbStage* stage = reinterpret_cast<UbStage*>(smem);
   const float4* k4 = reinterpret_cast<const float4*>(krec);
-  float4* sa = smem;
-  float4* su = smem + 4 * kOB;
-  for (int t = threadIdx.x; t < 4 * kOB; t += blockDim.x) {
-    const int owner = lo_own + (t >> 2);
-    if (owner < n_owners) sa[t] = __ldg(k4 + 4LL * owner + (t & 3));
+  const int c = blockIdx.x, G = gridDim.x;  // CTA c: blocks c, c + G, ...
+  const int n_list = min(ub, kStageB);
+  int lv[kListPer];
+  if (c < n_blocks) {
+    ub_list(uniq, c, ub, n_list, n_owners, lv);
+    ub_stage(stage[0], k4, n_owners, lv);
   }
-  const int* my_uniq = uniq + (long long)blk * ub;
-  for (int t = threadIdx.x; t < 4 * ub; t += blockDim.x) {
-    const int owner = __ldg(my_uniq + (t >> 2));
-    if (owner < n_owners) su[t] = __ldg(k4 + 4LL * owner + (t & 3));
+  // this CTA's share of the dead tail, while the first copies land
+  const long long stride = (long long)G * kUbThreads;
+  for (long long j = __ldg(blk_start + n_blocks) +
+                     (long long)blockIdx.x * kUbThreads + threadIdx.x;
+       j < cap; j += stride) {
+    store_dead(o, j, cap, with_friction);
   }
-  __syncthreads();
-  for (long long j = range[0] + threadIdx.x; j < range[1];
-       j += blockDim.x) {
-    float s[kFstatW];
-    load_row(fstat, cap, j, s);
-    const Kin A = smem_kin(sa + 4 * (__ldg(own_a + j) - lo_own));
-    const Kin B = smem_kin(su + 4 * (int)__ldg(uidx + j));
-    float w0 = 0.f, w1 = 0.f, w2 = 0.f, w3 = 0.f;
-    if (with_friction) {
-      w0 = wx[j]; w1 = wy[j]; w2 = wz[j]; w3 = wt[j];
+  for (int b = c, i = 0; b < n_blocks; b += G, ++i) {
+    const bool more = b + G < n_blocks;
+    if (more) ub_list(uniq, b + G, ub, n_list, n_owners, lv);
+    const int lo = __ldg(blk_start + b), hi = __ldg(blk_start + b + 1);
+    cp_async_wait_all();
+    __syncthreads();  // block b staged; every thread is done with the last
+    if (more) ub_stage(stage[(i + 1) & 1], k4, n_owners, lv);
+    const UbStage& st = stage[i & 1];
+    for (long long j = lo + threadIdx.x; j < hi; j += kUbThreads) {
+      float s[kFstatW];
+      load_row(fstat, cap, j, s);
+      const Kin A = load_kin(krec, (int)s[0]);  // rows share A owners: L1
+      const int u = (int)__ldg(uidx + j);
+      const Kin B = u < kStageB
+                        ? smem_kin(st.b + 4 * u)
+                        : load_kin(krec, __ldg(uniq + (long long)b * ub + u));
+      float w0 = 0.f, w1 = 0.f, w2 = 0.f, w3 = 0.f;
+      if (with_friction) {
+        w0 = wx[j]; w1 = wy[j]; w2 = wz[j]; w3 = wt[j];
+      }
+      hertz_row(s, A, B, w0, w1, w2, w3, h, vs, with_friction, o, j, cap);
     }
-    hertz_row(s, A, B, w0, w1, w2, w3, h, vs, with_friction, o, j, cap);
   }
 }
 
@@ -378,28 +434,40 @@ extern "C" int dem_fused_hertz_ub(const float* fstat, int cap,
                                   const float* wx, const float* wy,
                                   const float* wz, const float* wt,
                                   const float* krec, int n_owners,
-                                  const int* own_a, const float* uidx,
+                                  const int* blk_start, const float* uidx,
                                   const int* uniq, int ub, float h,
                                   float voxel_size, int with_friction,
                                   float* rec_a, float* rec_b, float* wc_out,
                                   float* ext_f, float* ext_t, float* ext_cp,
                                   void* stream) {
+  static int n_sm = 0;  // the launches' device, queried once per process
   if (cap > 0 && n_owners > 0) {
-    const int threads = 256;
-    const int n_blocks = (n_owners + kOB - 1) / kOB;
-    const size_t smem = sizeof(float4) * 4 * ((size_t)kOB + ub);
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          fused_hertz_ub_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (e != cudaSuccess) return (int)e;
+    const int smem = (int)(2 * sizeof(UbStage));
+    if (n_sm == 0) {
+      int dev = 0;
+      cudaError_t e = cudaGetDevice(&dev);
+      if (e == cudaSuccess) {
+        e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                   dev);
+      }
+      if (e == cudaSuccess) {
+        e = cudaFuncSetAttribute(fused_hertz_ub_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      }
+      if (e != cudaSuccess) {
+        n_sm = 0;
+        return (int)e;
+      }
     }
+    const int n_blocks = (n_owners + kOB - 1) / kOB;
+    const int ctas = n_blocks < kUbCtasPerSM * n_sm ? n_blocks
+                                                    : kUbCtasPerSM * n_sm;
     const Outs o{rec_a, rec_b, wc_out, ext_f, ext_t, ext_cp};
-    const int n_tail = (cap + kTailRows - 1) / kTailRows;
-    fused_hertz_ub_kernel<<<n_tail + n_blocks, threads, smem,
+    fused_hertz_ub_kernel<<<ctas, kUbThreads, smem,
                             static_cast<cudaStream_t>(stream)>>>(
-        fstat, cap, wx, wy, wz, wt, krec, n_owners, own_a, uidx, uniq, ub,
-        n_tail, h, voxel_size, with_friction, o);
+        fstat, cap, wx, wy, wz, wt, krec, n_owners, blk_start, uidx, uniq,
+        ub, n_blocks, h, voxel_size, with_friction, o);
   }
   return (int)cudaGetLastError();
 }

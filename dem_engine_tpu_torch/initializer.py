@@ -151,8 +151,11 @@ def empty_ss_table(cfg: SolverConfig, cap: int, device, uniq_rows: int = 0):
     from .ops.forces import require_fused
 
     require_fused(cfg.force_model)
-    return ContactTable.empty(cap, cfg.force_model.contact_wildcards,
-                              fused=True, uniq_rows=uniq_rows, device=device)
+    return ContactTable.empty(
+        cap, cfg.force_model.contact_wildcards, fused=True,
+        uniq_rows=uniq_rows,
+        uniq_blocks=uniq_rows // cfg.uniq_cap if uniq_rows else 0,
+        device=device)
 
 
 def ss_uniq_rows(cfg: SolverConfig, n_owners: int) -> int:

@@ -28,6 +28,7 @@ HALF_SHELL = np.asarray(
 )
 
 _MAX_TOTAL_BINS = float(2**30)
+REC_W = 8  # floats per sorted-sphere record (SphereBinTable.rec)
 SENTINEL_BIN = 2**31 - 1
 
 
@@ -61,12 +62,14 @@ class SphereBinTable:
     """Spheres sorted by flat bin id, padded to a static size.
 
     ``rec`` packs the candidate payload [pos3, reach, owner, family, id]
-    into one f32 row per sorted sphere (ids are exact in f32 below 2^24);
-    padding rows have reach -1e30, owner -1 and id S.
+    into one f32 row per sorted sphere (ids are exact in f32 below 2^24),
+    padded to REC_W = 8 floats (32 bytes: two aligned float4 loads in
+    kernel C; column 7 is 0); padding rows have reach -1e30, owner -1
+    and id S.
     """
 
     sorted_bin: torch.Tensor   # i32[Spad]
-    rec: torch.Tensor          # f32[Spad,7]
+    rec: torch.Tensor          # f32[Spad,REC_W]
     order: torch.Tensor        # i32[Spad] original sphere id (S for padding)
     idx3: torch.Tensor         # i32[Spad,3] sorted 3-D bin indices
     max_occ: torch.Tensor      # i32[] most spheres in one bin
@@ -89,6 +92,10 @@ def build_sphere_table(pos, reach, owner, family, bin_size, nb, pad_to):
             (pad,), SENTINEL_BIN, dtype=I, device=dev)])
         order = torch.cat([order, torch.full((pad,), S, dtype=I,
                                              device=dev)])
+    if S == 0:  # the padding rows gather from one zero row
+        pos, reach, owner, family, idx3 = (
+            x.new_zeros((1,) + tuple(x.shape[1:]))
+            for x in (pos, reach, owner, family, idx3))
     ok = order < S
     src = torch.clamp(order, max=max(S - 1, 0)).long()
     rec = torch.cat(
@@ -98,6 +105,7 @@ def build_sphere_table(pos, reach, owner, family, bin_size, nb, pad_to):
             torch.where(ok, owner[src].to(F), -1.0)[:, None],
             torch.where(ok, family[src].to(F), 0.0)[:, None],
             torch.where(ok, order, S).to(F)[:, None],
+            torch.zeros((pad_to, 1), dtype=F, device=dev),
         ],
         dim=1,
     )

@@ -22,6 +22,7 @@ from typing import Tuple
 
 import torch
 
+from .. import _build
 from ..defines import (
     F,
     HUGE_FLOAT,
@@ -143,8 +144,8 @@ def finalize_table(kind, table: ContactTable, owners: Owners, spheres,
 
     kind "ss" builds the slim fused-pass record ``fstat_a`` (state.
     FSTAT_W) and, with `uniq_cap`, the unique-fetch layout of kernel B-ub
-    (``uidx``, ``uniq_a``, ``uniq_max``); kind "sa" the wide ``statics``
-    record and premix that ``contact_pass`` reads."""
+    (``uidx``, ``uniq_a``, ``uniq_max``, ``blk_start``); kind "sa" the
+    wide ``statics`` record and premix that ``contact_pass`` reads."""
     n_owners = owners.n
     src_b = {"ss": spheres, "sa": anals}[kind]
 
@@ -197,12 +198,24 @@ def finalize_table(kind, table: ContactTable, owners: Owners, spheres,
     return out.replace(statics=statics, premix=premix)
 
 
-def _with_uniq_layout(table, n_owners, uniq_cap):
-    """Kernel B-ub computes each contact once, from the A layout, so only
-    the A layout's lists are kept. ``uniq_max`` still covers the B layout
-    (own_b_sorted against own_a[perm_b]), as the JAX package's two-pass
-    kernel needs both: OVF_UNIQ then rises on the same scenes, and the
-    engine's growth protocol takes the same steps."""
+def block_starts(own_a, n_owners):
+    """i32[NB+1]: the first row of each block of OB A owners, then the
+    first dead row, of an own_a-sorted table (dead rows, own_a -1, last)."""
+    from .fused_force import OB, n_blocks_of
+
+    keys = torch.clamp(torch.arange(n_blocks_of(n_owners) + 1, dtype=I,
+                                    device=own_a.device) * OB, max=n_owners)
+    return torch.searchsorted(torch.where(own_a >= 0, own_a, _DEAD), keys,
+                              out_int32=True)
+
+
+def uniq_layout_plain(table, n_owners, uniq_cap):
+    """The unique-fetch lists as tensor code: (uidx, uniq_a, uniq_max,
+    blk_start). Kernel B-ub computes each contact once, from the A layout,
+    so only the A layout's lists are kept. ``uniq_max`` still covers the
+    B layout (own_b_sorted against own_a[perm_b]), as the JAX package's
+    two-pass kernel needs both: OVF_UNIQ then rises on the same scenes,
+    and the engine's growth protocol takes the same steps."""
     from .fused_force import OB
 
     live = table.idA >= 0
@@ -213,8 +226,50 @@ def _with_uniq_layout(table, n_owners, uniq_cap):
     own_a_b = torch.where(live_b, table.own_a[table.perm_b.long()], 0)
     _, _, umax_b = _uniq_layout(table.own_b_sorted, own_a_b, n_owners, OB,
                                 uniq_cap)
-    return table.replace(uidx=uidx, uniq_a=uniq_a,
-                         uniq_max=torch.maximum(umax_a, umax_b))
+    return (uidx, uniq_a, torch.maximum(umax_a, umax_b),
+            block_starts(table.own_a, n_owners))
+
+
+def uniq_layout_cuda(table, n_owners, uniq_cap):
+    """The lists launch (``csrc/uniq_layout.cu``): the same four outputs
+    as ``uniq_layout_plain``, element for element, from one launch after
+    a 4-byte memset of ``uniq_max``. Needs a finalized table: rows sorted
+    by (own_a, own_b) and, through perm_b, by (own_b, own_a), dead rows
+    last in both orders."""
+    from .fused_force import n_blocks_of
+
+    cap = table.cap
+    dev = table.own_a.device
+    for name in ("own_a", "own_b", "own_b_sorted", "perm_b"):
+        _build.require(getattr(table, name), I, (cap,), name)
+    if n_owners <= 0 or uniq_cap <= 0:
+        raise ValueError(f"lists of {n_owners} owners, width {uniq_cap}")
+    nb = n_blocks_of(n_owners)
+    uidx = torch.empty((cap,), dtype=F, device=dev)
+    uniq_a = torch.empty((nb * uniq_cap,), dtype=I, device=dev)
+    blk_start = torch.empty((nb + 1,), dtype=I, device=dev)
+    umax = torch.empty((), dtype=I, device=dev)
+    uniq_layout_cuda.launches += 1
+    _build.check(_build.lib().dem_uniq_layout(
+        table.own_a.data_ptr(), table.own_b.data_ptr(),
+        table.own_b_sorted.data_ptr(), table.perm_b.data_ptr(), cap,
+        n_owners, uniq_cap, uidx.data_ptr(), uniq_a.data_ptr(),
+        blk_start.data_ptr(), umax.data_ptr(),
+        _build.stream_of(table.own_a)), "dem_uniq_layout")
+    return uidx, uniq_a, umax, blk_start
+
+
+uniq_layout_cuda.launches = 0
+
+
+def _with_uniq_layout(table, n_owners, uniq_cap):
+    """The table with its unique-fetch lists: the lists launch on a CUDA
+    table, ``uniq_layout_plain`` on a CPU one."""
+    build = (uniq_layout_cuda if table.own_a.is_cuda
+             else uniq_layout_plain)
+    uidx, uniq_a, umax, blk_start = build(table, n_owners, uniq_cap)
+    return table.replace(uidx=uidx, uniq_a=uniq_a, uniq_max=umax,
+                         blk_start=blk_start)
 
 
 def _fused_statics(live, own_a, iA, iB, oa, ob, mat_a, mat_b, owners,

@@ -15,8 +15,10 @@ through perm_b over own_b_sorted in one launch. ``fused_wrench_ss``
 returns those sums as one (N, 6) tensor, the step's accumulator, which
 ``forces.reduce_wrench_segment`` adds the other tables onto.
 A table with unique-fetch rows (``uniq_a``, built at refresh when
-``SolverConfig.uniq_cap`` > 0) runs kernel B-ub, which reads each
-block's distinct B owners once instead of one B record per row. The
+``SolverConfig.uniq_cap`` > 0, by the lists launch on the card:
+``forces.uniq_layout_cuda``) runs kernel B-ub, which reads each block's
+distinct B owners once instead of one B record per row, and each
+block's rows from ``blk_start`` instead of searching own_a. The
 extras ride in the same launch (``hertz_extras_cuda``). On CPU tensors
 ``fused_step_ss_plain`` runs the same math as tensor code and sums with
 ``index_add_``.
@@ -239,14 +241,14 @@ def _launch(table, krec, h, voxel_size, model, ub, extras):
     if ub:
         n_blocks = n_blocks_of(n)
         width = table.uniq_a.shape[0] // n_blocks
-        _build.require(table.own_a, I, (cap,), "own_a")
+        _build.require(table.blk_start, I, (n_blocks + 1,), "blk_start")
         _build.require(table.uidx, F, (cap,), "uidx")
         _build.require(table.uniq_a, I, (n_blocks * width,), "uniq_a")
         if not 0 < width <= 2048:
             raise ValueError(f"unique list width {width} outside (0, 2048]")
         _build.check(lib.dem_fused_hertz_ub(
             table.fstat_a.data_ptr(), cap, *wc_ptrs, krec.data_ptr(), n,
-            table.own_a.data_ptr(), table.uidx.data_ptr(),
+            table.blk_start.data_ptr(), table.uidx.data_ptr(),
             table.uniq_a.data_ptr(), width, float(h), float(voxel_size),
             int(bool(names)), *out_ptrs, stream), "dem_fused_hertz_ub")
     else:

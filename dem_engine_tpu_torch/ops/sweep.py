@@ -6,12 +6,14 @@ compacted into a `cap`-row table, with the full count (which may exceed
 `cap`; the caller raises OVF_SS_CAP).
 
 The sorted sphere table (``binning.build_sphere_table``) is tensor code.
-On CUDA tensors ``csrc/sweep.cu`` then searches it in two launches, a
-count per sphere and, after an exclusive scan of the counts, a write at
-each sphere's offset: one design for search, compaction and the count.
-On CPU tensors the plain slot sweep ``binning.sweep_table`` runs with a
-per-bin scan as wide as the fullest bin, so neither path has a window
-that can overflow: OVF_BIN_OCC and OVF_PALLAS_WIN are never raised.
+On CUDA tensors ``csrc/sweep.cu`` then searches it in one launch after
+one memset, with no read-back: tiles of sorted spheres stage their
+half-shell windows in shared memory, count, take their offsets by a
+single-pass scan across tiles, and write: one design for search,
+compaction and the count. On CPU tensors the plain slot sweep
+``binning.sweep_table`` runs with a per-bin scan as wide as the fullest
+bin, so neither path has a window that can overflow: OVF_BIN_OCC and
+OVF_PALLAS_WIN are never raised.
 Both emit pairs in the same order (sorted row, half-shell offset, slot).
 """
 
@@ -37,32 +39,28 @@ def find_pairs_ss(pos, reach, owner, family, family_mask, bin_size, nb,
 
 
 def sweep_table_cuda(tab, n_spheres, family_mask, nb, cap):
-    """Kernel C over a sorted table: the count launch, an exclusive scan
-    of the counts, the write launch."""
+    """Kernel C over a sorted table: one memset of its output buffer and
+    one launch, nothing read back. Returns (idA, idB, count), the count a
+    device scalar."""
     spad = tab.n_rows
     dev = tab.rec.device
-    _build.require(tab.rec, F, (spad, 7), "rec")
+    _build.require(tab.rec, F, (spad, binning.REC_W), "rec")
     _build.require(tab.sorted_bin, I, (spad,), "sorted_bin")
     _build.require(tab.idx3, I, (spad, 3), "idx3")
     _build.require(family_mask, torch.bool, (256, 256), "family_mask")
-    nb0, nb1, nb2 = (int(x) for x in nb.tolist())
+    _build.require(nb, I, (3,), "nb")
+    if tab.rec.data_ptr() % 16:
+        raise ValueError("rec must be 16-byte aligned")
     lib = _build.lib()
-    stream = _build.stream_of(tab.rec)
-    common = (tab.rec.data_ptr(), tab.sorted_bin.data_ptr(),
-              tab.idx3.data_ptr(), family_mask.data_ptr(), spad,
-              n_spheres, nb0, nb1, nb2)
-    cnt = torch.empty((spad,), dtype=I, device=dev)
+    n_tiles = max(1, -(-spad // lib.dem_sweep_tile()))
+    # pair columns, tile status words (two i32 each), ticket, count
+    buf = torch.empty((2 * cap + 2 * n_tiles + 2,), dtype=I, device=dev)
     sweep_table_cuda.launches += 1
-    _build.check(lib.dem_sweep_count(*common, cnt.data_ptr(), stream),
-                 "dem_sweep_count")
-    inc = torch.cumsum(cnt, 0, dtype=I)
-    base = inc - cnt
-    outA = torch.full((cap,), -1, dtype=I, device=dev)
-    outB = torch.full((cap,), -1, dtype=I, device=dev)
-    _build.check(lib.dem_sweep_write(*common, base.data_ptr(), cap,
-                                     outA.data_ptr(), outB.data_ptr(),
-                                     stream), "dem_sweep_write")
-    return outA, outB, inc[-1]
+    _build.check(lib.dem_sweep(
+        tab.rec.data_ptr(), tab.sorted_bin.data_ptr(), tab.idx3.data_ptr(),
+        family_mask.data_ptr(), nb.data_ptr(), spad, n_spheres, cap,
+        buf.data_ptr(), _build.stream_of(tab.rec)), "dem_sweep")
+    return buf[:cap], buf[cap:2 * cap], buf[-1]
 
 
 sweep_table_cuda.launches = 0

@@ -268,10 +268,13 @@ class Engine:
         if self.cfg.uniq_cap != cfg.uniq_cap:
             n = state.owners.n
             rows = ss_uniq_rows(self.cfg, n)
+            n_starts = rows // self.cfg.uniq_cap + 1 if rows else 0
             ss = ss.replace(
                 uniq_a=torch.full((rows,), n, dtype=I, device=state.device),
                 uidx=torch.zeros((ss.cap if rows else 0,), dtype=F,
-                                 device=state.device))
+                                 device=state.device),
+                blk_start=torch.zeros((n_starts,), dtype=I,
+                                      device=state.device))
         return state.replace(ss=ss, sa=state.sa.grown(self.cfg.cap_sa))
 
     def maybe_shrink(self, state: SimState) -> SimState:

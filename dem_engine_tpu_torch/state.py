@@ -167,6 +167,10 @@ class ContactTable(_Replace):
                                # in unused slots)
     uniq_max: torch.Tensor     # i32[] largest per-block unique count over
                                # the A and the B layout, at the refresh
+    blk_start: torch.Tensor    # i32[NB+1] first row of each block's A
+                               # owners, then the first dead row; (0,) when
+                               # uniq fetch is off. Rows past the live ones
+                               # do not move it, so grown/shrunk keep it
 
     @property
     def cap(self) -> int:
@@ -175,7 +179,8 @@ class ContactTable(_Replace):
     @staticmethod
     def empty(cap: int, wildcard_names: Tuple[str, ...] = (),
               premix_names: Tuple[str, ...] = (), fused: bool = False,
-              uniq_rows: int = 0, device=None) -> "ContactTable":
+              uniq_rows: int = 0, uniq_blocks: int = 0,
+              device=None) -> "ContactTable":
         def z(*shape, dtype=F):
             return torch.zeros(shape, dtype=dtype, device=device)
 
@@ -205,6 +210,8 @@ class ContactTable(_Replace):
             uidx=z(cap if (fused and uniq_rows) else 0),
             uniq_a=z(uniq_rows, dtype=I),
             uniq_max=z(dtype=I),
+            # no live row: every block starts at row 0
+            blk_start=z(uniq_blocks + 1 if uniq_rows else 0, dtype=I),
         )
 
     def grown(self, new_cap: int) -> "ContactTable":
@@ -251,6 +258,7 @@ class ContactTable(_Replace):
             uidx=rows(self.uidx),
             uniq_a=self.uniq_a,
             uniq_max=self.uniq_max,
+            blk_start=self.blk_start,
         )
 
     def shrunk(self, new_cap: int) -> "ContactTable":
@@ -289,6 +297,7 @@ class ContactTable(_Replace):
             uidx=head(self.uidx),
             uniq_a=self.uniq_a,
             uniq_max=self.uniq_max,
+            blk_start=self.blk_start,
         )
 
 

@@ -11,7 +11,8 @@ D within 1e-5 of the exact (float64) sums, relative to the largest, and
 D's spill flag equal to the plain version's; kernel B owner wrench 2e-4
 and wildcards 1e-3 (FMA contraction and atomic summation order), its
 extras 2e-4; kernel B-ub equal to kernel B (one device function on
-bit-equal records); kernel C identical pair tables.
+bit-equal records); the lists launch and kernel C identical, element
+for element, to their plain versions.
 """
 
 import dataclasses
@@ -20,8 +21,22 @@ import numpy as np
 import pytest
 import torch
 
-from dem_engine_tpu_torch import DEMSolver, Engine, build_case
-from dem_engine_tpu_torch.initializer import empty_ss_table, ss_uniq_rows
+from dem_engine_tpu_torch import (
+    DEMSolver,
+    Engine,
+    HertzianForceModel,
+    SolverConfig,
+    TimeIntegrator,
+    build_case,
+)
+from dem_engine_tpu_torch.initializer import (
+    empty_ss_table,
+    make_owners,
+    make_params,
+    make_spheres,
+    make_state,
+    ss_uniq_rows,
+)
 from dem_engine_tpu_torch.ops import binning, forces, segred, sweep
 from dem_engine_tpu_torch.ops.fused_force import (
     fused_step_ss,
@@ -34,10 +49,14 @@ from dem_engine_tpu_torch.solver import run_steps, ss_search_inputs
 pytestmark = pytest.mark.cuda
 
 
-@pytest.fixture
-def bed():
+def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+
+
+@pytest.fixture
+def bed():
+    _need_card()
     cfg, state, params = build_case(2048, update_freq=10, device="cuda")
     eng = Engine(cfg)
     state = eng.advance(state, params, 5, 10)
@@ -126,8 +145,7 @@ def test_segred_kernel_skips_dead_steps():
     a live one, single rows, and a tail that begins in the middle of a
     step. A warp stops only at a group that begins with an all-dead
     step, so these sum as the plain version does."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    _need_card()
     g = torch.Generator(device="cuda").manual_seed(2)
     n, cap = 40, 1024
     ids = torch.sort(torch.randint(0, n, (cap,), device="cuda",
@@ -193,6 +211,167 @@ def test_ub_kernel_matches_direct(bed_uniq):
     assert _rel(f_p, f_u) <= 2e-4 and _rel(t_p, t_u) <= 2e-4
 
 
+def _material_params(domain, gravity, crr, update_freq):
+    return make_params(
+        h=5e-6, gravity=gravity, domain=domain,
+        materials={"E": np.asarray([1e7], np.float32),
+                   "nu": np.asarray([0.3], np.float32)},
+        pair_materials={"CoR": np.asarray([[0.5]], np.float32),
+                        "mu": np.asarray([[0.4]], np.float32),
+                        "Crr": np.asarray([[crr]], np.float32)},
+        update_freq=update_freq, device="cuda")
+
+
+def _random_pile(seed=1, n_clumps=60, uniq_cap=64):
+    """The random 60-clump pile of tests/test_pallas_force.py (the same
+    numpy draws), refreshed on the card with unique-fetch lists."""
+    R = 0.01
+    rng = np.random.default_rng(seed)
+    side = max(2, int(np.ceil(n_clumps ** (1 / 3))))
+    g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"),
+                 axis=-1).reshape(-1, 3)[:n_clumps]
+    pos = 0.1 + g * (1.9 * R) + rng.uniform(-0.2 * R, 0.2 * R, (n_clumps, 3))
+    quat = rng.normal(size=(n_clumps, 4))
+    quat /= np.linalg.norm(quat, axis=1, keepdims=True)
+    owners = make_owners(
+        pos=pos, voxel_size=1.0 / 2**16, quat=quat,
+        vel=rng.uniform(-0.5, 0.5, (n_clumps, 3)),
+        omg=rng.uniform(-5.0, 5.0, (n_clumps, 3)),
+        mass=np.full(n_clumps, 1e-2), moi=np.full((n_clumps, 3), 1e-6),
+        device="cuda")
+    spheres = make_spheres(
+        owner=np.repeat(np.arange(n_clumps), 2),
+        relpos=np.tile(np.asarray([[0.5 * R, 0, 0], [-0.5 * R, 0, 0]]),
+                       (n_clumps, 1)),
+        radius=np.full(2 * n_clumps, R) * rng.uniform(0.9, 1.1,
+                                                       2 * n_clumps),
+        device="cuda")
+    cfg = SolverConfig(voxel_size=1.0 / 2**16,
+                       integrator=TimeIntegrator.CENTERED_DIFFERENCE,
+                       force_model=HertzianForceModel(), cap_ss=2048,
+                       cap_st=8, cap_sa=8, uniq_cap=uniq_cap)
+    params = _material_params([1.0] * 3, [0.0, 0.0, -9.81], 0.02, 5)
+    eng = Engine(cfg)
+    return eng.cfg, eng.refresh(make_state(owners, spheres, cfg), params), \
+        params
+
+
+def _cube_clumps(seed=0, side=12, uniq_cap=2048):
+    """side^3 clumps of 27 spheres (a 3x3x3 cube at a 1.8 R spacing) on a
+    grid of pitch 5 R, owner ids shuffled over the grid: facing spheres
+    of face neighbours overlap by 0.6 R and those of edge neighbours by
+    0.02 R, so an owner block of 128 holds ~5,800 rows (past the lists
+    kernel's 2,048-row sort) and ~1,100 distinct other owners (past the
+    384 records kernel B-ub stages per block). Refreshed on the card."""
+    R = 0.005
+    rng = np.random.default_rng(seed)
+    n = side**3
+    g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"),
+                 axis=-1).reshape(-1, 3)
+    pos = 10 * R + g[rng.permutation(n)] * (5.0 * R)
+    dims = np.full(3, side * 5.0 * R + 20 * R)
+    voxel_size = float(dims.max()) / 2**20
+    c = np.stack(np.meshgrid(*[np.arange(-1, 2)] * 3, indexing="ij"),
+                 axis=-1).reshape(-1, 3) * (1.8 * R)
+    owners = make_owners(pos=pos, voxel_size=voxel_size,
+                         vel=rng.uniform(-0.1, 0.1, (n, 3)),
+                         mass=np.full(n, 1e-2), moi=np.full((n, 3), 1e-6),
+                         device="cuda")
+    spheres = make_spheres(owner=np.repeat(np.arange(n), 27),
+                           relpos=np.tile(c, (n, 1)),
+                           radius=np.full(27 * n, R), device="cuda")
+    cfg = SolverConfig(voxel_size=voxel_size,
+                       integrator=TimeIntegrator.CENTERED_DIFFERENCE,
+                       force_model=HertzianForceModel(), cap_ss=60 * n,
+                       cap_st=8, cap_sa=8, uniq_cap=uniq_cap)
+    params = _material_params(dims, [0.0, 0.0, 0.0], 0.0, 5)
+    eng = Engine(cfg)
+    return eng.cfg, eng.refresh(make_state(owners, spheres, cfg), params), \
+        params
+
+
+def _lists_match_plain(table, n, ub):
+    """The lists launch on `table` against uniq_layout_plain, element
+    for element. Returns the launch's (uidx, uniq_a, uniq_max, blk_start).
+    """
+    before = forces.uniq_layout_cuda.launches
+    got = forces.uniq_layout_cuda(table, n, ub)
+    assert forces.uniq_layout_cuda.launches == before + 1
+    want = forces.uniq_layout_plain(table, n, ub)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("case", ["bed", "bed_overflow", "pile", "cubes"])
+def test_lists_kernel_matches_plain(case):
+    """The lists launch equals the plain _uniq_layout (both layouts) and
+    the searchsorted block starts: on the bed, on the bed with 16 slots a
+    block (more distinct others than slots: clamped ranks, uniq_max past
+    the width), on the random pile, and on blocks longer than the
+    kernel's shared-memory tile."""
+    _need_card()
+    if case.startswith("bed"):
+        cfg, state, params = build_case(2048, update_freq=10, device="cuda")
+        state = Engine(cfg).refresh(state, params)
+        ub = 16 if case == "bed_overflow" else 512
+    else:
+        cfg, state, _ = _random_pile() if case == "pile" else _cube_clumps()
+        ub = cfg.uniq_cap
+    n = state.owners.n
+    _, _, umax, starts = _lists_match_plain(state.ss, n, ub)
+    if case == "bed_overflow":
+        assert int(umax) > ub
+    if case == "cubes":
+        assert int(starts.diff().max()) > 2048
+
+
+def test_lists_kernel_two_streams():
+    """Two lists launches on two streams at once, on the bed's table and
+    on the big blocks' (many more CTAs), each equal to its plain version:
+    a launch shares no state with another."""
+    _need_card()
+    cfg, state, params = build_case(2048, update_freq=10, device="cuda")
+    state = Engine(cfg).refresh(state, params)
+    jobs = [(state.ss, state.owners.n, 16)]
+    cfg_c, state_c, _ = _cube_clumps()
+    jobs.append((state_c.ss, state_c.owners.n, cfg_c.uniq_cap))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in jobs]
+    got = []
+    for _ in range(3):
+        for st, (t, n, ub) in zip(streams, jobs):
+            with torch.cuda.stream(st):
+                got.append(forces.uniq_layout_cuda(t, n, ub))
+    torch.cuda.synchronize()
+    for i, out in enumerate(got):
+        t, n, ub = jobs[i % 2]
+        for g, w in zip(out, forces.uniq_layout_plain(t, n, ub)):
+            assert torch.equal(g, w)
+
+
+def test_ub_kernel_big_blocks():
+    """Kernel B-ub equals kernel B on owner blocks of ~5,800 rows with
+    ~1,100 distinct B owners each (records past the 384 staged ones come
+    through L2), and its plain version within tolerance."""
+    _need_card()
+    cfg, state, params = _cube_clumps()
+    ss = state.ss
+    assert 512 < int(ss.uniq_max) <= cfg.uniq_cap
+    assert int(ss.blk_start.diff().max()) > 2048
+    krec = forces.pack_kinematics(state.owners, world_omg=True)
+    args = (ss, krec, float(params.h), cfg.voxel_size, cfg.force_model)
+    for u, d in zip(hertz_rows_ub_cuda(*args), hertz_rows_cuda(*args)):
+        assert torch.equal(u, d)
+    f_u, t_u, _ = fused_step_ss(ss, state.owners, float(params.h),
+                                cfg.voxel_size, cfg.force_model, krec)
+    f_p, t_p, _ = fused_step_ss_plain(ss, state.owners, float(params.h),
+                                      cfg.voxel_size, cfg.force_model, krec)
+    assert float(f_p.abs().max()) > 0
+    assert _rel(f_p, f_u) <= 2e-4 and _rel(t_p, t_u) <= 2e-4
+
+
 def test_segred_v1_kernel_matches_plain(bed):
     cfg, state, params = bed
     n = state.owners.n
@@ -224,15 +403,22 @@ def test_segred_v1_kernel_matches_plain(bed):
             assert not got.any()
 
 
-def test_solver_matches_cpu():
+@pytest.mark.parametrize("uniq", [None, 512, 2])
+def test_solver_matches_cpu(uniq):
     """The public DEMSolver on the card against the CPU: 64 clumps on a
-    floor, 10 steps, rolling resistance off."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    floor, 10 steps, rolling resistance off; with the card's default
+    (unique fetch off), with unique fetch at 512 (kernel B-ub and the
+    lists launch), and at 2, which OVF_UNIQ makes the engine grow. The
+    CPU runs without unique fetch in every case."""
+    _need_card()
     out = {}
+    before = (forces.uniq_layout_cuda.launches,
+              hertz_rows_ub_cuda.launches)
     for dev in ("cuda", "cpu"):
         s = DEMSolver(device=dev)
         s.SetVerbosity("QUIET")
+        if uniq is not None:
+            s.SetFusedUniqueFetch(uniq)
         s.InstructBoxDomainDimension(0.1, 0.1, 0.1)
         mat = s.LoadMaterial({"E": 1e7, "nu": 0.3, "CoR": 0.5, "mu": 0.4,
                               "Crr": 0.0})
@@ -248,6 +434,16 @@ def test_solver_matches_cpu():
         s.DoDynamics(1e-4)
         out[dev] = (s.GetOwnerVelocity(), s.GetNumContacts(),
                     s.GetContactDetailedInfo())
+        if dev == "cuda":
+            width = s.engine.cfg.uniq_cap
+            ran = (forces.uniq_layout_cuda.launches - before[0],
+                   hertz_rows_ub_cuda.launches - before[1])
+    if uniq is None:
+        assert width == 0 and ran == (0, 0)
+    else:
+        assert width >= uniq and min(ran) > 0
+        if uniq == 2:
+            assert width > 2  # grown past the lists' overflow
     (vg, ng, dg), (vc, nc, dc) = out["cuda"], out["cpu"]
     assert ng == nc > 0
     assert np.abs(vg - vc).max() <= 2e-4 * np.abs(vc).max()
@@ -268,6 +464,57 @@ def test_sweep_kernel_matches_plain(bed):
                                          q["nb_cd"], cap, int(tab.max_occ))
         assert int(kn) == int(pn) > 1000
         assert torch.equal(ka, pa) and torch.equal(kb, pb)
+
+
+def _sweep_both(pos, reach, family, mask, cap, box=1.0):
+    """find_pairs_ss on the card and on the CPU from the same arrays:
+    the pair tables and counts must be identical."""
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = [torch.as_tensor(x, device=dev) for x in
+             (pos, reach, np.arange(len(reach), dtype=np.int32), family)]
+        bs, nb = binning.build_grid(torch.full((3,), box, device=dev),
+                                    t[1].max() if len(reach) else
+                                    torch.tensor(0.01, device=dev))
+        out[dev] = sweep.find_pairs_ss(*t, torch.as_tensor(mask, device=dev),
+                                       bs, nb, cap)
+    (ka, kb, kn), (pa, pb, pn) = out["cuda"], out["cpu"]
+    assert int(kn) == int(pn)
+    assert torch.equal(ka.cpu(), pa) and torch.equal(kb.cpu(), pb)
+    return int(pn)
+
+
+@pytest.mark.parametrize("case", ["overfull_bin", "sparse", "past_cap",
+                                  "no_sphere", "one_sphere"])
+def test_sweep_kernel_edge_tables(case):
+    """Kernel C against the plain sweep on tables the bed does not make:
+    1,200 spheres in one bin (a window longer than the 512 staged
+    slots), sparse random spheres whose 256-sphere tiles span many bin
+    rows (with a family mask), the same with a count past `cap`, and
+    tables of no sphere and of one."""
+    _need_card()
+    rng = np.random.default_rng(3)
+    f32 = np.float32
+    mask = np.ones((256, 256), bool)
+    if case == "overfull_bin":
+        # bin size 2 * 0.01 * 1.01: bin 25 of each axis is [0.505, 0.5252)
+        pos = rng.uniform(0.506, 0.524, (1200, 3)).astype(f32)
+        n = _sweep_both(pos, np.full(1200, 0.01, f32),
+                        np.zeros(1200, np.int32), mask, 1_000_000)
+        assert n > 100_000
+        return
+    if case in ("no_sphere", "one_sphere"):
+        k = 0 if case == "no_sphere" else 1
+        assert _sweep_both(rng.uniform(0.1, 0.9, (k, 3)).astype(f32),
+                           np.full(k, 0.01, f32), np.zeros(k, np.int32),
+                           mask, 64) == 0
+        return
+    pos = rng.uniform(0.02, 0.98, (20_000, 3)).astype(f32)
+    reach = (0.012 * rng.uniform(0.8, 1.2, 20_000)).astype(f32)
+    family = rng.integers(0, 3, 20_000).astype(np.int32)
+    mask[1, 2] = mask[2, 1] = False
+    cap = 100 if case == "past_cap" else 200_000
+    assert _sweep_both(pos, reach, family, mask, cap) > 1000
 
 
 def test_engine_matches_cpu(bed):

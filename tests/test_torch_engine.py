@@ -9,7 +9,8 @@
   60-clump pile: a unique-list capacity of 2 per block overflows
   (OVF_UNIQ) and the engine's refresh grows it until it fits; and the
   lists survive a capacity shrink between refresh and steps (the unique
-  and the direct step stay equal after it, within 1e-6).
+  and the direct step stay equal after it, within 1e-6), with the block
+  row starts of kernel B-ub.
 """
 
 import dataclasses
@@ -131,6 +132,18 @@ def test_uniq_survives_capacity_shrink():
     for table in (s_u.ss, s_u.sa, s_u.ss.grown(3000), s_u.ss.shrunk(new_cap),
                   s_u.sa.grown(s_u.sa.cap + 100)):
         _dead_rows_trail(table, n)
+    # kernel B-ub's block row starts: block b's A owners hold rows
+    # [blk_start[b], blk_start[b+1]), the dead rows follow; grown and
+    # shrunk carry them unchanged
+    starts = s_u.ss.blk_start
+    n_live = int(s_u.ss.count)
+    assert starts.shape == (-(-n // 128) + 1,) and int(starts[-1]) == n_live
+    assert int(starts[0]) == 0
+    row_blk = torch.repeat_interleave(torch.arange(starts.shape[0] - 1),
+                                      starts.diff())
+    assert torch.equal(row_blk, s_u.ss.own_a[:n_live].long() // 128)
+    for table in (s_u.ss.grown(3000), s_u.ss.shrunk(new_cap)):
+        assert torch.equal(table.blk_start, starts)
     s_d = s_d.replace(ss=s_d.ss.shrunk(new_cap))
     s_u = s_u.replace(ss=s_u.ss.shrunk(new_cap))
     assert s_u.ss.uidx.shape[0] == new_cap
