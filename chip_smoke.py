@@ -16,31 +16,47 @@ Phases, each printing its own numbers; any failure exits nonzero:
                one side; D); C also with a count past its capacity; the
                lists launch (unique-fetch lists of both layouts and the
                block row starts) identical to its plain version; B-ub
-               and B also on the API's own (shrunk) table
+               and B also on the API's own (shrunk) table; then, on the
+               poly bed (below), C on both member tables of its two-class
+               CD (also past cap) and A on its ST table
   3 parity     the 4,096-clump bed: one refresh + 10 steps on the card
                (kernels) against the same on the CPU (plain versions),
-               with rolling resistance off and with its default
+               with rolling resistance off and with its default; the
+               4,096-clump poly bed: one refresh, pair sets (SS, ST, SA)
   4 main       Engine.advance on the 262,144-clump bed, K = 25: 100
                warm-up steps, then 250 timed steps; launch counts, memory,
                physics checks
-  5 api        DEMSolver on the same bed through its public calls
+  5 poly       Engine.advance on the poly bed: 262,144 clumps, a fifth of
+               them ratio-3 (two-class CD), on the floor and a fixed plate
+               of 2*16^2 triangles under the bed's middle (ST every step);
+               K = 25, warm-up and timed steps as main; counts against
+               the capacities, launch counts, memory, physics checks
+  6 api        DEMSolver on the mono bed through its public calls
                (LoadClumpType, AddClumps, AddBCPlane, Initialize,
                DoDynamics), K = 25, 250 timed steps after one warm-up
                chunk, twice: unique fetch at its default and off; launch
                counts, memory, shrunk capacities, physics checks; then one
-               timed GetContactDetailedInfo
-  6 device     torch.profiler, only after every timed run: the device time
+               timed GetContactDetailedInfo. Then the poly path through
+               the API: two LoadClumpTypes, the two-class CD switched on
+               by Initialize's radius rule, a free plate
+               (DEMMeshConnected, 2*16^2 triangles) laid on the bed's top
+               layer by AddWavefrontMeshObject; DoDynamics and a query
+               with its ST block
+  7 device     torch.profiler, only after every timed run: the device time
                and launches per call of the segment sums (A: a step's two
-               pair calls, D), of one C search, of B on the main path's
-               table, and of the lists launch, B-ub and B on the API's
-               table, against their bounds
-  7 uniq       the unique-fetch decision: the device time of one
+               pair calls, D), of one C search, of the poly refresh's two
+               C searches, of B on the main path's table, and of the
+               lists launch, B-ub and B on the API's table, against their
+               bounds
+  8 uniq       the unique-fetch decision: the device time of one
                DoDynamics chunk (refresh + K steps) with unique fetch at
                512 and off, five alternating rounds (torch.profiler)
-  8 breakdown  for the main path and each API path, on a bed settled anew,
-               one chunk: refresh and steps timed apart, then the device
-               time and launches of a step, and of one refresh, by
-               operation
+  9 breakdown  for the main path, the poly path and each API path (the
+               poly one too), on a bed settled anew, one chunk: refresh
+               and steps timed apart, then the device time and launches
+               of a step, and of one refresh, by operation; for the poly
+               path also the refresh's device time split into C x2, the
+               cross search, the ST search and the rest
 With every phase run, the line before the last holds the kernels' JSON
 record and the one before it the card's name and power limit; the last
 line is the JSON verdict.
@@ -59,6 +75,10 @@ import numpy as np
 
 R_SPHERE = 0.005  # the bed's sphere radius (cases.build_case)
 DEVICE = "cuda"
+# the poly bed: a fifth of the clumps ratio-3, a fixed plate of 2*16^2
+# triangles at the floor's height under the bed's middle
+POLY = dict(poly_frac=0.2, with_mesh=True, plate_grid=16,
+            plate_z=2 * R_SPHERE)
 
 
 def fail(msg):
@@ -120,7 +140,8 @@ def phase_device_times(torch, n_clumps, k, kern, reps=10):
     time, not against the event median, which for a few small launches is
     mostly host time between them. A step's sums must be one zeroing and
     two launches, a C search and the lists each one memset and one
-    launch, each other call one launch."""
+    launch (the poly refresh's two C searches, on its member tables, two
+    of each), each other call one launch."""
     from dem_engine_tpu_torch.ops import binning, forces, segred, sweep
     from dem_engine_tpu_torch.ops.fused_force import (hertz_rows_cuda,
                                                       hertz_rows_ub_cuda)
@@ -142,6 +163,14 @@ def phase_device_times(torch, n_clumps, k, kern, reps=10):
     su, n_u = s.state.ss, s.state.owners.n
     ub = s.engine.cfg.uniq_cap
     krec_u = forces.pack_kinematics(s.state.owners, world_omg=True)
+    eng_p, st_p, pr_p = kernel_bed(torch, n_clumps, **POLY)
+    _, _, _, tabs = member_tables(torch, eng_p, st_p, pr_p)
+    cap_p, mask_p = eng_p.cfg.cap_ss, pr_p.family_mask
+    c2 = [(t, rows, nb, int(sweep.sweep_table_cuda(t, rows, mask_p, nb,
+                                                   cap_p)[2]))
+          for t, rows, nb in tabs.values()]
+    b_c2 = [bytes_C(t, cap_p, hits) for t, _, _, hits in c2]
+    del eng_p, st_p
     for key, tag, fn, launches, bnd in (
             ("A", "A, a step's two pair calls", step_sums_call(tables, n), 3,
              kern["A"]["bound"][0]),
@@ -150,6 +179,10 @@ def phase_device_times(torch, n_clumps, k, kern, reps=10):
             ("C", "C, one search", lambda: sweep.sweep_table_cuda(
                 tab, S, q["family_mask"], q["nb_cd"], cfg.cap_ss), 2,
              kern["C"]["bound"][0]),
+            ("C2", "C, the poly refresh's two member searches",
+             lambda: [sweep.sweep_table_cuda(t, rows, mask_p, nb, cap_p)
+                      for t, rows, nb, _ in c2], 4,
+             bound(sum(b[0] for b in b_c2), sum(b[1] for b in b_c2))[0]),
             ("B", "B, the main path's step launch", lambda: hertz_rows_cuda(
                 state.ss, krec, h, vs, model), 1, kern["B"]["bound"][0]),
             ("lists", "the lists launch on the API's table",
@@ -184,7 +217,7 @@ def phase_device_times(torch, n_clumps, k, kern, reps=10):
             fail(f"{tag}: {count} launches, its design states {launches}")
         kern.setdefault(key, {})
         kern[key]["device_ms"], kern[key]["device_launches"] = dev, count
-    del s, su
+    del s, su, c2, tabs
 
 
 def host_us(torch, fn, reps=200):
@@ -266,23 +299,47 @@ def phase_build():
     print(f"[build] {path.name} in {dt:.1f} s", flush=True)
 
 
-def settled_case(torch, n_clumps, steps, update_freq=25):
+def settled_case(torch, n_clumps, steps, update_freq=25, **case):
+    """cases.build_case (with `case`, e.g. POLY) after `steps` steps."""
     from dem_engine_tpu_torch import Engine, build_case
 
     cfg, state, params = build_case(n_clumps, update_freq=update_freq,
-                                    device=DEVICE)
+                                    device=DEVICE, **case)
     eng = Engine(cfg)
     state = eng.advance(state, params, steps, update_freq)
     return eng, state, params
 
 
-def kernel_bed(torch, n_clumps):
+def kernel_bed(torch, n_clumps, **case):
     """The bed whose tables the kernels are held on: three steps, then
     the next refresh's tables. Returns (engine, state, params)."""
-    eng, state, params = settled_case(torch, n_clumps, steps=3)
+    eng, state, params = settled_case(torch, n_clumps, steps=3, **case)
     state = eng.refresh(state, params.replace(max_drift=torch.tensor(
         25, dtype=torch.int32, device=DEVICE)))
     return eng, state, params
+
+
+def member_tables(torch, eng, state, params):
+    """The poly bed's two-class search inputs as the refresh builds them:
+    (q, tc, {"large": (table, rows, nb), "small": ...}), the member
+    tables that kernel C searches, the large one compacted."""
+    from dem_engine_tpu_torch.ops import binning
+    from dem_engine_tpu_torch.solver import ss_search_inputs, two_class_inputs
+
+    params_k = params.replace(max_drift=torch.tensor(
+        25, dtype=torch.int32, device=DEVICE))
+    q = ss_search_inputs(state, params_k, eng.cfg.voxel_size)
+    S = state.spheres.n
+    small = state.spheres.radius <= params.cls_thr
+    tc = two_class_inputs(q, small, params_k, eng.cfg, S)
+    tabs = {}
+    for name in ("large", "small"):
+        pos, reach, own, fam, bs, nb, member = tc[name]
+        rows = pos.shape[0]
+        tabs[name] = (binning.build_sphere_table(
+            pos, reach, own, fam, bs, nb, max(rows, 1), member=member),
+            rows, nb)
+    return q, tc, small, tabs
 
 
 def segsum_inputs(eng, state, params):
@@ -297,8 +354,8 @@ def segsum_inputs(eng, state, params):
         ss, forces.pack_kinematics(state.owners, world_omg=True),
         float(params.h), cfg.voxel_size, cfg.force_model)
     p = forces.contact_pass("sa", state.sa, state.owners, state.spheres,
-                            state.anals, params, state.time, cfg.voxel_size,
-                            cfg.force_model,
+                            state.tris, state.anals, params, state.time,
+                            cfg.voxel_size, cfg.force_model,
                             krec=forces.pack_kinematics(state.owners))
     sa = p["table"]
     tables = [(rec_a, ss.own_a, rec_b, ss.own_b_sorted, ss.perm_b),
@@ -677,9 +734,68 @@ def phase_kernels(torch, n_clumps, k):
         fail("kernel D disagrees with its plain version")
     out["D"] = dict(max_abs_err=abs_d, ms=ms, plain_ms=pms, bound=bnd,
                     library_ms=lms)
-    del eng, state, tab
+    del eng, state, tab, tables, sa, rec_bg, calls, lib, lib_d
     torch.cuda.empty_cache()
+    phase_kernels_poly(torch, n_clumps, out)
     return out
+
+
+def phase_kernels_poly(torch, n_clumps, out):
+    """On the poly bed: kernel C on both member tables of its two-class
+    CD (the compacted large class, whose dead rows and the small class's
+    left-out spheres fill the sentinel tail), each held row for row to
+    the plain sweep at the bed's capacity and at a count past 1000; and
+    kernel A on its ST table, held to the float64 sum."""
+    from dem_engine_tpu_torch.ops import binning, forces, segred, sweep
+
+    eng, state, params = kernel_bed(torch, n_clumps, **POLY)
+    cfg, n = eng.cfg, state.owners.n
+    _, _, _, tabs = member_tables(torch, eng, state, params)
+    mask = params.family_mask
+    for name, (tab, rows, nb) in tabs.items():
+        mpb = int(tab.max_occ)
+        real = int((tab.sorted_bin != binning.SENTINEL_BIN).sum())
+        same = {}
+        for cap in (cfg.cap_ss, 1000):
+            ka, kb, kn = sweep.sweep_table_cuda(tab, rows, mask, nb, cap)
+            pa, pb, pn = binning.sweep_table(tab, rows, mask, nb, cap, mpb)
+            same[cap] = (int(kn) == int(pn) and torch.equal(ka, pa)
+                         and torch.equal(kb, pb))
+        ms = cuda_ms(torch, lambda: sweep.sweep_table_cuda(
+            tab, rows, mask, nb, cfg.cap_ss))
+        pms = cuda_ms(torch, lambda: binning.sweep_table(
+            tab, rows, mask, nb, cfg.cap_ss, mpb))
+        bnd = bound(*bytes_C(tab, cfg.cap_ss, int(pn)))
+        print(f"[kernels] C on the poly bed's {name}-class member table: "
+              f"{rows} rows, {real} real (the rest sentinel), pairs "
+              f"{int(pn)}, max bin occupancy {mpb}; identical to the plain "
+              f"sweep (pair table and count) at cap {cfg.cap_ss}: "
+              f"{same[cfg.cap_ss]}, at cap 1000 (count past it): "
+              f"{same[1000]}; kernel {ms:.3f} ms plain {pms:.3f} ms bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+        if not all(same.values()) or int(pn) <= 1000:
+            fail(f"kernel C differs from the plain sweep on the {name}-"
+                 "class member table")
+
+    st = state.st
+    p = forces.contact_pass("st", st, state.owners, state.spheres,
+                            state.tris, state.anals, params, state.time,
+                            cfg.voxel_size, cfg.force_model)
+    got = segred.seg_sum_pair(p["rec_a"], st.own_a, p["rec_b"],
+                              st.own_b_sorted, st.perm_b, n)
+    exact = (segred.seg_sum_plain(p["rec_a"].double(), st.own_a, n)
+             + segred.seg_sum_plain(p["rec_b"].double(), st.own_b_sorted, n,
+                                    perm=st.perm_b))
+    err = float((got.double() - exact).abs().max()) / max(
+        float(exact.abs().max()), 1e-30)
+    print(f"[kernels] A on the poly bed's ST table: rows {st.cap} live "
+          f"{int(st.count)} on {state.tris.n} triangles; error against the "
+          f"float64 sum {err:.2e} (tol 1e-5)", flush=True)
+    if not (err <= 1e-5 and int(st.count) > 0):
+        fail("kernel A disagrees with the float64 sum on the ST table")
+    out["A"]["st_err"] = err
+    del eng, state, tabs
+    torch.cuda.empty_cache()
 
 
 def _pair_set(t):
@@ -765,22 +881,55 @@ def phase_parity(torch, n_clumps):
     if not ok:
         fail("the card's slice disagrees with the CPU's")
 
+    # the poly bed with its plate: one refresh, pair sets
+    sets = {}
+    for dev in (DEVICE, "cpu"):
+        cfg, st, pr = build_case(n_clumps, update_freq=10, device=dev,
+                                 **POLY)
+        st = Engine(cfg).refresh(st, pr.replace(max_drift=torch.tensor(
+            10, dtype=torch.int32, device=dev)))
+        sets[dev] = [_pair_set(t) for t in (st.ss, st.st, st.sa)]
+    same = [a == b for a, b in zip(sets[DEVICE], sets["cpu"])]
+    print(f"[parity] {n_clumps}-clump poly bed with its plate, one refresh: "
+          f"SS pairs {len(sets[DEVICE][0])} ST pairs {len(sets[DEVICE][1])} "
+          f"SA pairs {len(sets[DEVICE][2])}; card and CPU sets equal (SS, "
+          f"ST, SA): {same}", flush=True)
+    if not (all(same) and len(sets["cpu"][1]) > 0):
+        fail("the card's poly refresh disagrees with the CPU's")
 
-def physics(torch, state, voxel_size, tag):
-    """Finite state, no sphere centre within half a radius of the floor
-    plane (z = 2R from the domain's lower corner), SS contacts present."""
-    from dem_engine_tpu_torch.solver import sphere_world_pos
 
-    o = state.owners
+def physics(torch, state, voxel_size, tag, floor=2 * R_SPHERE):
+    """Finite state, no sphere centre within half its radius of the floor
+    plane (at `floor` above the domain's lower corner), SS contacts
+    present; with triangles, ST contacts present and no sphere centre
+    over the plate within half its radius of the plate's plane (the plate
+    lies flat: nothing went through it)."""
+    from dem_engine_tpu_torch.solver import sphere_world_pos, tri_world_nodes
+
+    o, sph = state.owners, state.spheres
     finite = all(bool(torch.isfinite(x).all())
                  for x in (o.vel, o.omg, o.loc, o.quat))
-    z = sphere_world_pos(o, state.spheres, voxel_size)[:, 2]
-    min_gap = float((z - 2 * R_SPHERE).min())
-    print(f"[{tag}] physics: finite={finite} lowest sphere centre "
-          f"{min_gap / R_SPHERE:.3f} R above the floor (need > 0.5 R), "
-          f"ss.count {int(state.ss.count)} > 0", flush=True)
-    if not (finite and min_gap > 0.5 * R_SPHERE
-            and int(state.ss.count) > 0):
+    pos = sphere_world_pos(o, sph, voxel_size)
+    min_gap = float(((pos[:, 2] - floor) / sph.radius).min())
+    ok = finite and min_gap > 0.5 and int(state.ss.count) > 0
+    msg = (f"[{tag}] physics: finite={finite} lowest sphere centre "
+           f"{min_gap:.3f} radii above the floor (need > 0.5), ss.count "
+           f"{int(state.ss.count)} > 0")
+    if state.tris.n:
+        nodes = tri_world_nodes(o, state.tris, voxel_size).reshape(-1, 3)
+        lo, hi = nodes.min(0).values, nodes.max(0).values
+        over = ((pos[:, 0] > lo[0]) & (pos[:, 0] < hi[0])
+                & (pos[:, 1] > lo[1]) & (pos[:, 1] < hi[1]))
+        gap = float(((pos[over, 2] - nodes[:, 2].mean()).abs()
+                     / sph.radius[over]).min())
+        ok &= int(state.st.count) > 0 and gap > 0.5 and bool(
+            (hi[2] - lo[2]) < R_SPHERE)
+        msg += (f"; st.count {int(state.st.count)} > 0, {int(over.sum())} "
+                f"sphere centres over the plate, the nearest {gap:.3f} "
+                f"radii from its plane (need > 0.5), plate tilt "
+                f"{float(hi[2] - lo[2]) / R_SPHERE:.3f} R")
+    print(msg, flush=True)
+    if not ok:
         fail(f"{tag} physics checks")
 
 
@@ -811,6 +960,55 @@ def phase_main(torch, n_clumps, k, warm, steps):
     if launches != expect or refreshes < steps // k:
         fail("launch counts do not match the main path")
     physics(torch, state, eng.cfg.voxel_size, "main")
+    return launches
+
+
+def poly_counts(eng, state, params):
+    """The poly path's table counts against their capacities, and the
+    large class against the rows of its compaction."""
+    from dem_engine_tpu_torch.solver import _cross_lcap
+
+    cfg = eng.cfg
+    n_large = int((state.spheres.radius > params.cls_thr).sum())
+    return (f"ss.count {int(state.ss.count)} (cap {cfg.cap_ss}) st.count "
+            f"{int(state.st.count)} (cap {cfg.cap_st}) sa.count "
+            f"{int(state.sa.count)} (cap {cfg.cap_sa}); large class "
+            f"{n_large} spheres against lcap "
+            f"{_cross_lcap(cfg, state.spheres.n)}; ST sweep max_per_bin "
+            f"{cfg.max_per_bin}, cross_mpb {cfg.cross_mpb}")
+
+
+def phase_poly(torch, n_clumps, k, warm, steps):
+    """Engine.advance on the poly bed with its plate: the two-class CD
+    (C twice a refresh) and the ST table (A three times a step)."""
+    eng, state, params = settled_case(torch, n_clumps, warm, update_freq=k,
+                                      **POLY)
+    if not eng.cfg.cd_two_class or state.tris.n != 2 * 16 * 16:
+        fail("the poly bed is not two-class with its 512-triangle plate")
+    torch.cuda.synchronize()
+    attempts0 = eng.refresh_attempts
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = eng.advance(state, params, steps, k)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    refreshes = eng.refresh_attempts - attempts0
+    mem = torch.cuda.max_memory_allocated()
+    print(f"[poly] {n_clumps} clumps ({state.spheres.n} spheres, "
+          f"{state.tris.n} triangles), K={k}, {steps} steps after {warm} "
+          f"warm-up: {dt * 1e3 / steps:.3f} ms/step, "
+          f"{n_clumps * steps / dt:.4g} clump-steps/s; "
+          f"{poly_counts(eng, state, params)}; peak memory "
+          f"{mem / 2**30:.2f} GiB", flush=True)
+    expect = {"A": 3 * steps, "B": steps, "B-extras": 0, "B-ub": 0,
+              "C": 2 * refreshes, "D": 0, "lists": 0}
+    print(f"[poly] launches {launches}, expected {expect} "
+          f"({refreshes} refresh attempts)", flush=True)
+    if launches != expect or refreshes < steps // k:
+        fail("launch counts do not match the poly path")
+    physics(torch, state, eng.cfg.voxel_size, "poly")
     return launches
 
 
@@ -859,6 +1057,50 @@ def phase_breakdown(torch, eng, state, params, k, tag="breakdown"):
               flush=True)
 
 
+def poly_refresh_split(torch, eng, state, params, k):
+    """One poly refresh's device time (torch.profiler, the mean of five)
+    against its parts, each run alone on the same inputs: kernel C on the two member tables,
+    the cross search (entries and small-large pairs), the ST search (its
+    single-grid table and the two-stage sweep); the rest is the table
+    builds, the history carry and the finalizing sorts."""
+    from dem_engine_tpu_torch.ops import sweep
+    from dem_engine_tpu_torch.solver import cross_pairs, st_pairs
+
+    params_k = params.replace(max_drift=torch.tensor(
+        k, dtype=torch.int32, device=DEVICE))
+    q, tc, small, tabs = member_tables(torch, eng, state, params)
+    cfg, S = eng.cfg, state.spheres.n
+
+    def dev(fn, reps=5):
+        # per call over `reps` calls: the profiler now and then drops one
+        # of the first events of a profile, and at times a whole short
+        # profile: up to three tries
+        for _ in range(3):
+            rows = device_rows(torch, lambda: [fn() for _ in range(reps)],
+                               per=reps)
+            if rows:
+                return sum(r[0] for r in rows), sum(r[1] for r in rows)
+        return None
+
+    parts = {
+        "refresh": dev(lambda: eng.refresh(state, params_k)),
+        "C x2": dev(lambda: [sweep.sweep_table_cuda(
+            t, rows, q["family_mask"], nb, cfg.cap_ss)
+            for t, rows, nb in tabs.values()], reps=10),
+        "cross search": dev(lambda: cross_pairs(q, tc, small, cfg, S)),
+        "ST search": dev(lambda: st_pairs(state, params_k, cfg, q, None)),
+    }
+    line = "; ".join(f"{kk} not measured (no device time recorded)"
+                     if v is None else f"{kk} {v[0]:.3f} ms in {v[1]:g} "
+                     "launches" for kk, v in parts.items())
+    if all(parts.values()):
+        total = parts["refresh"][0]
+        rest = total - sum(v[0] for kk, v in parts.items()
+                           if kk != "refresh")
+        line += f"; the rest {rest:.3f} ms ({rest / total:.2f} of it)"
+    print(f"[poly breakdown] one refresh's device time: {line}", flush=True)
+
+
 API_H = 5e-6  # the API runs' step size
 API_DEFAULT_UNIQ = 0  # DEMSolver's unique-fetch width on the card
 # the API's default first (it also runs the contact query), then the
@@ -898,6 +1140,96 @@ def api_solver(n_clumps, k, uniq):
         s.SetFusedUniqueFetch(uniq)
     s.Initialize()
     return s
+
+
+def api_poly_solver(n_clumps, k):
+    """DEMSolver on the poly bed's lattice through its public calls: two
+    clump types (R and 3R), the floor by AddBCPlane, the two-class CD left
+    to Initialize's radius rule, and a free plate of 2*16^2 triangles
+    (12R square, the mass of a 12R x 12R x R slab) laid on the bed's top
+    layer by AddWavefrontMeshObject."""
+    from dem_engine_tpu_torch import DEMSolver
+    from dem_engine_tpu_torch.cases import R, bed_geometry, plate_mesh
+    from dem_engine_tpu_torch.structs import DEMMeshConnected
+
+    geo = bed_geometry(n_clumps, POLY["poly_frac"])
+    dims, pos, scale = geo["dims"], geo["pos"], geo["scale"]
+    s = DEMSolver(device=DEVICE)
+    s.SetVerbosity("WARNING")
+    s.InstructBoxDomainDimension(*dims)
+    mat = s.LoadMaterial({"E": 1e9, "nu": 0.3, "CoR": 0.5, "mu": 0.4,
+                          "Crr": 0.01})
+    tmpl = {f: s.LoadClumpType(geo["mass"] * f**3, geo["moi"] * f**5,
+                               [R * f] * 3, geo["rel"] * f, mat)
+            for f in (1.0, 3.0)}
+    s.AddClumps([tmpl[f] for f in scale], pos - dims / 2)
+    s.AddBCPlane([0, 0, -dims[2] / 2 + 2 * R], [0, 0, 1], mat)
+    verts, faces = plate_mesh(POLY["plate_grid"])
+    plate = DEMMeshConnected(vertices=verts, faces=faces)
+    m = 2600.0 * (12 * R) ** 2 * R
+    plate.SetMass(m)
+    plate.SetMOI([m * (12 * R) ** 2 / 12] * 2 + [m * (12 * R) ** 2 / 6])
+    top = pos[:, 2] + 2 * R * scale  # each clump's highest point
+    layer = top > top.max() - R
+    plate.SetInitPos(np.asarray([pos[layer, 0].mean(), pos[layer, 1].mean(),
+                                 top.max() - 1e-3 * R]) - dims / 2)
+    s.AddWavefrontMeshObject(plate, mat)
+    s.SetInitTimeStep(API_H)
+    s.SetGravitationalAcceleration([0, 0, -9.81])
+    s.SetCDUpdateFreq(k)
+    s.Initialize()
+    return s
+
+
+def phase_api_poly(torch, n_clumps, k, steps):
+    """The poly path through DEMSolver: DoDynamics timed after one
+    warm-up chunk, then one GetContactDetailedInfo with its ST block.
+    Returns the launch counts of the steps."""
+    h = API_H
+    torch.cuda.empty_cache()
+    s = api_poly_solver(n_clumps, k)
+    cfg = s.engine.cfg
+    if not cfg.cd_two_class or s.state.tris.n != 512:
+        fail("the API's poly bed did not take the two-class CD and plate")
+    s.DoDynamics(k * h)
+    attempts0 = s.engine.refresh_attempts
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    s.DoDynamics(steps * h)
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    refreshes = s.engine.refresh_attempts - attempts0
+    mem = torch.cuda.max_memory_allocated()
+    print(f"[api] poly path: {s.GetNumClumps()} clumps, "
+          f"{s.GetNumSpheres()} spheres, {s.state.tris.n} triangles of a "
+          f"free plate, two-class CD by the radius rule (cls_thr "
+          f"{float(s.params.cls_thr):.4g}), K={k}, {steps} steps: "
+          f"{dt * 1e3 / steps:.3f} ms/step, "
+          f"{n_clumps * steps / dt:.4g} clump-steps/s; "
+          f"{poly_counts(s.engine, s.state, s.params)}; peak memory "
+          f"{mem / 2**30:.2f} GiB", flush=True)
+    expect = {"A": 3 * steps, "B": steps, "B-extras": 0, "B-ub": 0,
+              "C": 2 * refreshes, "D": 0, "lists": 0}
+    print(f"[api] poly launches {launches}, expected {expect} "
+          f"({refreshes} refresh attempts)", flush=True)
+    if launches != expect or refreshes < steps // k:
+        fail("launch counts do not match the API's poly path")
+    physics(torch, s.state, s.engine.cfg.voxel_size, "api poly")
+    reset_counts()
+    info = {b["kind"]: b for b in s.GetContactDetailedInfo()}
+    q = read_counts()
+    finite = all(np.isfinite(b[f]).all() for b in info.values()
+                 for f in ("force", "torque_only", "point"))
+    n_st = len(info["ST"]["idA"]) if "ST" in info else 0
+    print(f"[api] poly GetContactDetailedInfo: kinds {sorted(info)}, ST "
+          f"rows {n_st}, finite={finite}, launches {q}", flush=True)
+    if not (q["B-extras"] == 1 and n_st == int(s.state.st.count) > 0
+            and finite and {"SS", "SA"} <= set(info)):
+        fail("the poly contact query did not return its ST block")
+    del s
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_uniq(torch, n_clumps, k, runs=5):
@@ -1018,7 +1350,7 @@ KERNELS = {
     "lists": ("unique_fetch_lists", "dem_engine_tpu_torch/csrc/uniq_layout.cu",
               "dem_engine_tpu/ops/forces.py:165 _uniq_layout"),
 }
-PHASES = ("kernels", "parity", "main", "breakdown", "api", "uniq")
+PHASES = ("kernels", "parity", "main", "poly", "breakdown", "api", "uniq")
 
 
 def main():
@@ -1052,8 +1384,12 @@ def main():
     if "main" in phases:
         main_counts = phase_main(torch, args.clumps, args.k, args.warm,
                                  args.steps)
+    if "poly" in phases:
+        torch.cuda.empty_cache()
+        phase_poly(torch, args.clumps, args.k, args.warm, args.steps)
     if "api" in phases:
         api_counts = phase_api(torch, args.clumps, args.k, args.steps)
+        phase_api_poly(torch, args.clumps, args.k, args.steps)
     # torch.profiler only from here on, so that no timed run follows a
     # profile in its process; the breakdowns settle their beds anew, so
     # no timed run shares the card's memory with them either
@@ -1064,6 +1400,13 @@ def main():
     if "breakdown" in phases and "main" in phases:
         phase_breakdown(torch, *settled_case(torch, args.clumps, args.warm,
                                              update_freq=args.k), args.k)
+    if "breakdown" in phases and "poly" in phases:
+        torch.cuda.empty_cache()
+        poly = settled_case(torch, args.clumps, args.warm,
+                            update_freq=args.k, **POLY)
+        phase_breakdown(torch, *poly, args.k, tag="poly breakdown")
+        poly_refresh_split(torch, *poly, args.k)
+        del poly
     if "breakdown" in phases and "api" in phases:
         for label, uniq in API_RUNS:
             torch.cuda.empty_cache()
@@ -1072,6 +1415,12 @@ def main():
             phase_breakdown(torch, s.engine, s.state, s.params, args.k,
                             tag=f"api breakdown, {label}")
             del s
+        torch.cuda.empty_cache()
+        s = api_poly_solver(args.clumps, args.k)
+        s.DoDynamics(args.k * API_H)
+        phase_breakdown(torch, s.engine, s.state, s.params, args.k,
+                        tag="api breakdown, poly")
+        del s
     print(card)
     if kern and main_counts and api_counts:
         # each kernel's launches on the path that runs it: A, B and C on

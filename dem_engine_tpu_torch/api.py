@@ -1,10 +1,12 @@
 """DEMSolver — the user-facing facade of the port.
 
 The JAX package's ``DEMSolver``/``DEMTracker`` method names and
-behaviour, for the subset this package runs: clumps of spheres and
-analytical boundaries, the built-in Hertz models, a fixed CD cadence.
-Meshes, two-class CD, prescriptions, family-change rules, persistency,
-checkpoints, inspectors and contact-file output are not here yet.
+behaviour, for the subset this package runs: clumps of spheres,
+analytical boundaries and triangle meshes (deformable through their
+trackers), the two-class CD of polydisperse beds, the built-in Hertz
+models, a fixed CD cadence. Prescriptions, family-change rules,
+persistency, checkpoints, inspectors and contact-file output are not
+here yet.
 
 Typical use:
 
@@ -21,10 +23,12 @@ Typical use:
     solver.Initialize()
     solver.DoDynamics(1.0)
 
-On a CUDA device the step runs kernels B, A and C, and the contact
-queries run kernel B with its extras outputs. Unique fetch (kernel B-ub
-and its lists launch at each refresh) is off by default on the card: it
-did not beat kernel B on the H100, whose L2 already serves B's gathers.
+On a CUDA device the step runs kernels B and A (once per table: SS, ST,
+SA), each refresh kernel C (twice, on member tables, in two-class mode),
+and the contact queries run kernel B with its extras outputs. Unique
+fetch (kernel B-ub and its lists launch at each refresh) is off by
+default on the card: it did not beat kernel B on the H100, whose L2
+already serves B's gathers.
 ``SetFusedUniqueFetch`` turns it on. On the CPU the plain versions run
 and unique fetch is off, as the JAX package runs on its CPU.
 """
@@ -51,16 +55,24 @@ from .initializer import (
     make_params,
     make_spheres,
     make_state,
+    make_triangles,
     resolve_device,
 )
 from .models import HertzianForceModel
-from .ops import forces
+from .ops import forces, quat
 from .ops.fused_force import fused_step_ss
 from .ops.voxel import choose_voxel_size, decode_host
 from .solver import Engine, sphere_world_pos
 from .state import SolverConfig
-from .structs import DEMClumpBatch, DEMClumpTemplate, DEMExternObj, DEMMaterial
+from .structs import (
+    DEMClumpBatch,
+    DEMClumpTemplate,
+    DEMExternObj,
+    DEMMaterial,
+    DEMMeshConnected,
+)
 from .utils import io as io_utils
+from .utils.obj_loader import load_obj
 
 
 def _np(t):
@@ -115,6 +127,36 @@ class DEMTracker:
               if len(pts) else np.zeros(3))
         return pts, fs, tq
 
+    # --- deformable meshes -------------------------------------------------
+    def UpdateMesh(self, new_vertices, offset: int = 0):
+        """Replace the tracked mesh's node positions (body frame): the
+        deformable-mesh path (reference SetTriNodeRelPos / UpdateMesh).
+        The next refresh and step see the new facets."""
+        s = self._s
+        mesh = self.obj
+        if not isinstance(mesh, DEMMeshConnected):
+            raise TypeError("tracker is not on a mesh")
+        v = np.asarray(new_vertices, np.float64)
+        t0 = mesh.tri_offset
+        tris = s.state.tris
+        nodes = tris.nodes.clone()
+        nodes[t0:t0 + mesh.n_tri] = torch.as_tensor(
+            v[np.asarray(mesh.faces)], dtype=defines.F, device=s.device)
+        s.state = s.state.replace(tris=tris.replace(nodes=nodes))
+        mesh.vertices = v
+
+    def UpdateMeshByIncrement(self, delta_vertices, offset: int = 0):
+        self.UpdateMesh(np.asarray(self.obj.vertices, np.float64)
+                        + np.asarray(delta_vertices, np.float64))
+
+    def GetMeshNodesGlobal(self, offset: int = 0):
+        """The tracked mesh's nodes in the user frame."""
+        s = self._s
+        q = s.state.owners.quat[self._oid(offset)].cpu()[None, :]
+        v = torch.as_tensor(np.asarray(self.obj.vertices, np.float64),
+                            dtype=defines.F)
+        return self.Pos(offset)[None, :] + _np(quat.rotate(q, v))
+
 
 class DEMSolver:
     """The solver facade, on `device`: the card unless the caller asks
@@ -151,6 +193,10 @@ class DEMSolver:
         self._bounding_bc_mat = None
         self._out_format = defines.OutputFormat.CSV
         self._pending_trackers: List[DEMTracker] = []
+        self._meshes: List[DEMMeshConnected] = []
+        self._cd_two_class = None  # None: the radius rule at Initialize
+        self._cls_thr = 0.0
+        self._max_tri_span = None
         # live (post-Initialize)
         self.state = None
         self.params = None
@@ -211,6 +257,18 @@ class DEMSolver:
         overflow and falls back to kernel B past 2048. Call before
         Initialize; 0 (the default) disables. On the CPU it is off."""
         self._uniq_cap = int(cap)
+
+    def SetCDTwoClassGrids(self, flag: bool = True):
+        """Force the two-class polydisperse CD on (True) or off (False).
+        Never called: Initialize switches it on where the radii spread by
+        more than 1.7 with more than 5 % and less than 99.9 % of the
+        spheres in the small class."""
+        self._cd_two_class = bool(flag)
+
+    def SetMaxTriangleInBin(self, n: int):
+        """The ST sweep's first span: n // 8 bins per axis (at least 2),
+        doubled on overflow up to 32."""
+        self._max_tri_span = max(2, int(n) // 8)
 
     def SetExpandSafetyMultiplier(self, m: float):
         self._expand_multi = float(m)
@@ -295,6 +353,26 @@ class DEMSolver:
         o.SetFamily(RESERVED_FAMILY)
         return o
 
+    def AddWavefrontMeshObject(self, path_or_mesh, material=None,
+                               load_normals=True,
+                               load_uv=False) -> DEMMeshConnected:
+        """A triangle mesh from an OBJ file, or a DEMMeshConnected as it
+        is. A mesh is an owner of its own; its default mass of 1e30 keeps
+        it in place."""
+        if isinstance(path_or_mesh, DEMMeshConnected):
+            mesh = path_or_mesh
+        elif load_normals:
+            verts, faces, nrm = load_obj(path_or_mesh, with_normals=True)
+            mesh = DEMMeshConnected(vertices=verts, faces=faces,
+                                    face_normals=nrm)
+        else:
+            verts, faces = load_obj(path_or_mesh)
+            mesh = DEMMeshConnected(vertices=verts, faces=faces)
+        if material is not None:
+            mesh.material = material
+        self._meshes.append(mesh)
+        return mesh
+
     # ------------------------------------------------------------------
     # trackers
     # ------------------------------------------------------------------
@@ -308,7 +386,7 @@ class DEMSolver:
     def _make_tracker(self, obj):
         if isinstance(obj, DEMClumpBatch):
             ids = np.arange(obj.owner_offset, obj.owner_offset + obj.n)
-        elif isinstance(obj, DEMExternObj):
+        elif isinstance(obj, (DEMExternObj, DEMMeshConnected)):
             ids = np.asarray([obj.owner_id])
         else:
             raise TypeError(f"cannot track {type(obj)}")
@@ -373,7 +451,7 @@ class DEMSolver:
         if self._bounding_bc in ("all", "top_open"):
             self._add_bounding_planes()
 
-        # owners: clumps, then analytical objects
+        # owners: clumps, then analytical objects, then meshes
         parts = []
         oid = 0
         for b in self._batches:
@@ -406,7 +484,25 @@ class DEMSolver:
                 a_sign.append(c.normal_sign)
                 a_mat.append(c.material.id if c.material else 0)
             oid += 1
-        n_ext = len(self._extern_objs)
+        t_owner, t_nodes, t_mat = [], [], []
+        for mesh in self._meshes:
+            mesh.owner_id = oid
+            mesh.tri_offset = sum(len(x) for x in t_owner)
+            ext["pos"].append(np.asarray(mesh.init_pos) - self._lbf)
+            ext["quat"].append(mesh.init_quat)
+            ext["family"].append(mesh.family)
+            ext["mass"].append(mesh.mass)
+            ext["moi"].append(mesh.moi)
+            t_owner.append(np.full(mesh.n_tri, oid))
+            t_nodes.append(np.asarray(mesh.vertices, np.float64)[
+                np.asarray(mesh.faces)])
+            t_mat.append(
+                np.asarray(mesh.face_materials)
+                if mesh.face_materials is not None
+                else np.full(mesh.n_tri,
+                             mesh.material.id if mesh.material else 0))
+            oid += 1
+        n_ext = len(self._extern_objs) + len(self._meshes)
         n_owners = oid
         if n_owners == 0:
             raise RuntimeError("nothing to simulate: add clumps first")
@@ -444,16 +540,30 @@ class DEMSolver:
             normal_sign=np.asarray(a_sign), mat=np.asarray(a_mat),
             device=self.device,
         )
+        tris = make_triangles(
+            owner=np.concatenate(t_owner) if t_owner else np.zeros(0),
+            nodes=(np.concatenate(t_nodes) if t_nodes
+                   else np.zeros((0, 3, 3))),
+            mat=np.concatenate(t_mat) if t_mat else np.zeros(0),
+            device=self.device)
         n_spheres = spheres.n
+        # polydisperse beds (radius ratio above 1.7 with real mass in both
+        # classes) take the two-class CD: one grid's bin occupancy grows
+        # as the cube of the radius ratio
         radii = scat("s_rad")
-        if radii.size and radii.min() > 0 and radii.max() / radii.min() > 1.7:
-            frac = float(np.mean(radii <= np.sqrt(radii.min() * radii.max())))
-            if 0.05 < frac < 0.999:
-                raise NotImplementedError(
-                    "this radius spread takes the two-class CD, which is "
-                    "not ported to the torch package yet")
+        self._cls_thr = 0.0
+        two_class = False
+        if radii.size and self._cd_two_class is not False:
+            rmin, rmax = float(radii.min()), float(radii.max())
+            if rmin > 0 and rmax / rmin > 1.7:
+                thr = float(np.sqrt(rmin * rmax))
+                frac = float(np.mean(radii <= thr))
+                if 0.05 < frac < 0.999 or self._cd_two_class:
+                    self._cls_thr = thr
+                    two_class = True
 
         cap_ss = -(-max(512, int(5 * n_spheres)) // 512) * 512
+        cap_st = max(64, 4 * tris.n) if tris.n else 8
         # a sphere can rest against several analytical components at once
         cap_sa = max(64, min(2, anals.n) * n_spheres) if anals.n else 8
         on_card = self.device.type == "cuda"
@@ -462,11 +572,14 @@ class DEMSolver:
             integrator=self._integrator,
             force_model=model,
             cap_ss=cap_ss,
-            cap_st=8,
+            cap_st=cap_st,
             cap_sa=cap_sa,
+            max_tri_span=self._max_tri_span or 4,
+            cd_two_class=two_class,
             uniq_cap=self._uniq_cap if on_card else 0,
         )
-        self.state = make_state(owners, spheres, cfg, anals=anals)
+        self.state = make_state(owners, spheres, cfg, tris=tris,
+                                anals=anals)
         self.engine = Engine(cfg)
         self._rebuild_params()
         self._initialized = True
@@ -474,8 +587,9 @@ class DEMSolver:
             t.owner_ids = self._make_tracker(t.obj).owner_ids
         self._engine_log(
             "INFO", f"initialized on {self.device}: {n_owners} owners, "
-            f"{n_spheres} spheres, {anals.n} analytical components; "
-            f"voxel={self._voxel_size:.3e}")
+            f"{n_spheres} spheres, {tris.n} triangles, {anals.n} "
+            f"analytical components; voxel={self._voxel_size:.3e}"
+            + ("; two-class CD" if two_class else ""))
         if dry_run:
             self.state = self.engine.refresh(self.state, self.params)
         return self
@@ -512,6 +626,7 @@ class DEMSolver:
             family_mask=self._family_mask,
             family_persist=self._family_persist,
             family_extra_margin=self._family_extra_margin,
+            cls_thr=self._cls_thr,
             device=self.device,
         )
 
@@ -725,8 +840,71 @@ class DEMSolver:
         return np.concatenate(pts_all), np.concatenate(fs_all)
 
     # ------------------------------------------------------------------
+    # meshes
+    # ------------------------------------------------------------------
+    def GetCachedMesh(self, owner_id: int) -> DEMMeshConnected:
+        """The mesh attached to an owner (reference API.h:494)."""
+        for m in self._meshes:
+            if m.owner_id == int(owner_id):
+                return m
+        raise KeyError(f"owner {owner_id} has no cached mesh")
+
+    def SetTriNodeRelPos(self, owner_id: int, new_nodes):
+        """Deformable-mesh node update by owner id (reference API.h:489);
+        `new_nodes` are body-frame vertex positions."""
+        mesh = self.GetCachedMesh(owner_id)
+        DEMTracker(self, [owner_id], obj=mesh).UpdateMesh(new_nodes)
+
+    def SetFamilyMeshMaterial(self, family: int, material):
+        """The material of every facet whose mesh is in `family`."""
+        st = self.state
+        if st.tris.n == 0:
+            return
+        mid = material.id if hasattr(material, "id") else int(material)
+        fam = st.owners.family[st.tris.owner.long()]
+        self.state = st.replace(tris=st.tris.replace(
+            mat=torch.where(fam == family, mid, st.tris.mat)))
+
+    # ------------------------------------------------------------------
     # output
     # ------------------------------------------------------------------
+    def WriteMeshFile(self, path):
+        """Every mesh in the user frame, in one legacy-VTK file: facet
+        normals from the source file where the mesh uses them, else from
+        the winding."""
+        if not self._meshes:
+            return
+        ids = [m.owner_id for m in self._meshes]
+        owners = self.state.owners
+        qs = _np(owners.quat[ids]).astype(np.float64)
+        pos = decode_host(_np(owners.vox[ids]), _np(owners.loc[ids]),
+                          self._voxel_size) + self._lbf
+
+        def rot(q, v):  # quaternion rotation, float64
+            t = 2.0 * np.cross(q[1:4], v)
+            return v + q[0] * t + np.cross(q[1:4], t)
+
+        verts, faces, nrms = [], [], []
+        off = 0
+        for q, p, mesh in zip(qs, pos, self._meshes):
+            v = np.asarray(mesh.vertices, np.float64)
+            vw = p[None] + rot(q, v)
+            f = np.asarray(mesh.faces)
+            if mesh.use_mesh_normals and mesh.face_normals is not None:
+                nrms.append(rot(q, np.asarray(mesh.face_normals,
+                                              np.float64)))
+            else:
+                n = np.cross(vw[f[:, 1]] - vw[f[:, 0]],
+                             vw[f[:, 2]] - vw[f[:, 0]])
+                nrms.append(n / np.maximum(
+                    np.linalg.norm(n, axis=1, keepdims=True), 1e-30))
+            verts.append(vw)
+            faces.append(f + off)
+            off += len(v)
+        io_utils.write_mesh_vtk(path, np.concatenate(verts),
+                                np.concatenate(faces),
+                                normals=np.concatenate(nrms))
+
     def WriteSphereFile(self, path):
         st = self.state
         pos = _np(sphere_world_pos(st.owners, st.spheres, self._voxel_size)

@@ -83,12 +83,8 @@ def analyticals_from_numpy(a, device) -> Analyticals:
 
 
 def triangles_from_numpy(t, device) -> Triangles:
-    tri = Triangles(**_fields(t, device, floats=("nodes",),
-                              ints=("owner", "mat")))
-    if tri.n:
-        raise NotImplementedError(
-            "triangle meshes are not ported to the torch package yet")
-    return tri
+    return Triangles(**_fields(t, device, floats=("nodes",),
+                               ints=("owner", "mat")))
 
 
 def table_from_numpy(t, device, fused=False) -> ContactTable:
@@ -183,17 +179,16 @@ _MODELS = {
 
 def config_from_reference(cfg) -> SolverConfig:
     """The port's SolverConfig from a JAX ``SolverConfig``: voxel size,
-    integrator, built-in force model and capacities. Options of the JAX
-    package that select TPU kernels or layouts have no counterpart (the
-    port picks kernels by device); settings the port does not run yet
-    raise."""
+    integrator, built-in force model, capacities, the ST sweep's scan
+    widths and the two-class CD settings. Options of the JAX package that
+    select TPU kernels or layouts have no counterpart (the port picks
+    kernels by device); settings the port does not run yet raise."""
     model = _MODELS.get(_get(cfg, "force_model").fused_variant)
     if model is None:
         raise NotImplementedError(
             "only the built-in Hertz force models are ported")
-    if _get(cfg, "use_persistency") or _get(cfg, "cd_two_class"):
-        raise NotImplementedError(
-            "persistency and two-class CD are not ported yet")
+    if _get(cfg, "use_persistency"):
+        raise NotImplementedError("persistency is not ported yet")
     if _get(cfg, "prescriptions") or _get(cfg, "family_changes"):
         raise NotImplementedError(
             "prescriptions and family changes are not ported yet")
@@ -204,6 +199,12 @@ def config_from_reference(cfg) -> SolverConfig:
         cap_ss=int(_get(cfg, "cap_ss")),
         cap_st=int(_get(cfg, "cap_st")),
         cap_sa=int(_get(cfg, "cap_sa")),
+        max_per_bin=int(_get(cfg, "max_per_bin")),
+        max_tri_span=int(_get(cfg, "max_tri_span")),
+        st_bruteforce=bool(_get(cfg, "st_bruteforce")),
+        cd_two_class=bool(_get(cfg, "cd_two_class")),
+        cross_lcap=int(_get(cfg, "cross_lcap")),
+        cross_mpb=int(_get(cfg, "cross_mpb")),
         # the JAX package builds unique-fetch layouts on fused tables only
         uniq_cap=(int(_get(cfg, "uniq_cap"))
                   if _get(cfg, "use_fused_force") else 0),

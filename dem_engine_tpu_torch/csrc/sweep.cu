@@ -47,6 +47,13 @@
 // for each of 256 spheres, ~37 KB a CTA (tools/redesign_variants.py times
 // the other choices).
 //
+// A row is real when its sorted bin is not the sentinel (binning.
+// SENTINEL_BIN): padding rows and, in a member table (the two classes of
+// the two-class CD), the spheres left out sort into the table's tail with
+// that bin, id S and reach -1e30. A tile counts its real rows with one
+// __syncthreads_count, takes its bins and windows from them alone, and
+// the window searches never reach the tail, whose bin is above every key.
+//
 // The hit test must give the same bit as the plain version: the squared
 // distance is (dx*dx + dy*dy) + dz*dz with every product and sum rounded
 // (__fmul_rn/__fadd_rn, so no FMA contraction), as the tensor code
@@ -78,6 +85,7 @@ constexpr int kWin = SWEEP_WIN;    // window slots staged in shared memory
 constexpr int kHits = SWEEP_HITS;  // hits a sphere keeps in shared memory
 constexpr int kBins = SWEEP_BINS;  // bins a window's start table covers
 constexpr unsigned kNoStatus = 0xffffffffu;  // the memset's status flag
+constexpr int kSentinelBin = INT_MAX;  // binning.SENTINEL_BIN
 constexpr unsigned kAggregate = 1u, kInclusive = 2u;
 __constant__ int kRunDy[5] = {0, 1, -1, 0, 1};
 __constant__ int kRunDz[5] = {0, 0, 1, 1, 1};
@@ -229,15 +237,22 @@ sweep_kernel(const float4* __restrict__ rec, const int* __restrict__ sbin,
   __syncthreads();
   const int tile = sh.tile;
   const int k0 = tile * kTile;
-  const int k_end = min(k0 + kTile, min(n_spheres, spad));  // real rows
+  // the tile's real rows: those of a real bin. The sentinel bin sorts
+  // last, so padding and the spheres a member table leaves out form the
+  // table's tail and a tile's real rows are its first ones
+  const int k_lim = min(n_spheres, spad);
+  const int k_end = k0 + __syncthreads_count(
+      k0 + tid < k_lim && __ldg(sbin + k0 + tid) != kSentinelBin);
   const int nb0 = __ldg(nbp), nb1 = __ldg(nbp + 1), nb2 = __ldg(nbp + 2);
 
   // the 5 windows' 10 ends (run 0 starts at the tile's first sphere)
   const int b_first = k0 < k_end ? __ldg(sbin + k0) : 0;
   const int b_last = k0 < k_end ? __ldg(sbin + k_end - 1) : 0;
-  // every window spans the tile's bins and one more each side, offset
-  const int n_bins = b_last - b_first + 3;
-  const bool table = kBins > 0 && n_bins <= kBins;
+  // every window spans the tile's bins and one more each side, offset;
+  // in 64 bits, so that no pair of bins can overflow the difference
+  const long long span = (long long)b_last - b_first + 3;
+  const bool table = kBins > 0 && span <= kBins;
+  const int n_bins = table ? (int)span : 0;
   if (k0 < k_end) {
     for (int e = warp; e < 10; e += kTile / 32) {  // one warp an end
       const int r = e >> 1;

@@ -112,6 +112,22 @@ def empty_triangles(device) -> Triangles:
     )
 
 
+def make_triangles(owner, nodes, mat=None, wildcards=None, *,
+                   device) -> Triangles:
+    """nodes: (T, 3, 3) body-frame node positions of each facet."""
+    owner = np.asarray(owner).reshape(-1)
+    t = owner.shape[0]
+    if t == 0:
+        return empty_triangles(device)
+    return Triangles(
+        owner=_i(owner, device),
+        nodes=_f(nodes, device, (t, 3, 3)),
+        mat=_i(np.zeros(t) if mat is None else mat, device, (t,)),
+        wildcards={k: _f(v, device, (t,))
+                   for k, v in (wildcards or {}).items()},
+    )
+
+
 def empty_analyticals(device) -> Analyticals:
     return Analyticals(
         owner=torch.zeros((0,), dtype=I, device=device),
@@ -178,9 +194,6 @@ def make_state(owners: Owners, spheres: Spheres, cfg: SolverConfig,
                tris: Optional[Triangles] = None,
                anals: Optional[Analyticals] = None) -> SimState:
     device = owners.vox.device
-    if tris is not None and tris.n:
-        raise NotImplementedError(
-            "triangle meshes are not ported to the torch package yet")
 
     def scalar(dtype):
         return torch.zeros((), dtype=dtype, device=device)
@@ -188,7 +201,7 @@ def make_state(owners: Owners, spheres: Spheres, cfg: SolverConfig,
     return SimState(
         owners=owners,
         spheres=spheres,
-        tris=empty_triangles(device),
+        tris=tris if tris is not None else empty_triangles(device),
         anals=anals if anals is not None else empty_analyticals(device),
         ss=empty_ss_table(cfg, cfg.cap_ss, device,
                           ss_uniq_rows(cfg, owners.n)),

@@ -28,6 +28,7 @@ from ..defines import (
     HUGE_FLOAT,
     I,
     SPHERE_ANALYTICAL_CONTACT,
+    SPHERE_MESH_CONTACT,
     TINY_FLOAT,
 )
 from ..models.force_model import ContactContext
@@ -138,16 +139,18 @@ def _uniq_layout(own_ids, other_ids, n_owners, ob, uniq_cap):
 
 
 def finalize_table(kind, table: ContactTable, owners: Owners, spheres,
-                   anals, params, model, uniq_cap: int = 0) -> ContactTable:
+                   tris, anals, params, model,
+                   uniq_cap: int = 0) -> ContactTable:
     """Sort the table by (own_a, own_b), rebuild the B-side permutation
     and denormalize the refresh-constant data.
 
     kind "ss" builds the slim fused-pass record ``fstat_a`` (state.
     FSTAT_W) and, with `uniq_cap`, the unique-fetch layout of kernel B-ub
-    (``uidx``, ``uniq_a``, ``uniq_max``, ``blk_start``); kind "sa" the
-    wide ``statics`` record and premix that ``contact_pass`` reads."""
+    (``uidx``, ``uniq_a``, ``uniq_max``, ``blk_start``); kinds "st" and
+    "sa" the wide ``statics`` record and premix that ``contact_pass``
+    reads."""
     n_owners = owners.n
-    src_b = {"ss": spheres, "sa": anals}[kind]
+    src_b = {"ss": spheres, "st": tris, "sa": anals}[kind]
 
     live0 = table.idA >= 0
     jA = torch.where(live0, table.idA, 0).long()
@@ -186,8 +189,8 @@ def finalize_table(kind, table: ContactTable, owners: Owners, spheres,
             out = _with_uniq_layout(out, n_owners, uniq_cap)
         return out
 
-    statics = _build_statics(live, iA, iB, oa, ob, own_a, own_b, mat_a,
-                             mat_b, owners, spheres, anals)
+    statics = _build_statics(kind, live, iA, iB, oa, ob, own_a, own_b,
+                             mat_a, mat_b, owners, spheres, tris, anals)
     premix = {}
     for name in model.per_material_props:
         t = params.mat_props[name]
@@ -334,11 +337,23 @@ def _fused_statics(live, own_a, iA, iB, oa, ob, mat_a, mat_b, owners,
     return fs.T.contiguous()
 
 
-def _build_statics(live, iA, iB, oa, ob, own_a, own_b, mat_a, mat_b,
-                   owners, spheres, anals):
-    """The (STATIC_W, cap) record of an SA table (state.STATIC_W)."""
+def _build_statics(kind, live, iA, iB, oa, ob, own_a, own_b, mat_a, mat_b,
+                   owners, spheres, tris, anals):
+    """The (STATIC_W, cap) record of an ST or SA table (state.STATIC_W):
+    columns 8:17 hold the triangle's 9 body-frame node floats (ST) or the
+    analytical component (SA)."""
     cap = live.shape[0]
     dev = live.device
+    if kind == "st":
+        rest = [tris.nodes[iB].reshape(cap, 9)]
+    else:
+        rest = [
+            anals.objtype[iB].to(F)[:, None],
+            anals.relpos[iB],
+            anals.direction[iB],
+            anals.size[iB][:, 0:1],
+            anals.normal_sign[iB][:, None],
+        ]
     cols = [
         own_a.to(F)[:, None],
         own_b.to(F)[:, None],
@@ -346,11 +361,7 @@ def _build_statics(live, iA, iB, oa, ob, own_a, own_b, mat_a, mat_b,
         spheres.radius[iA][:, None],
         mat_a.to(F)[:, None],
         mat_b.to(F)[:, None],
-        anals.objtype[iB].to(F)[:, None],
-        anals.relpos[iB],
-        anals.direction[iB],
-        anals.size[iB][:, 0:1],
-        anals.normal_sign[iB][:, None],
+        *rest,
         owners.mass[oa][:, None],
         owners.mass[ob][:, None],
         owners.moi[oa],
@@ -377,12 +388,13 @@ def _unpack_kin(rec):
 
 
 def contact_pass(kind, table: ContactTable, owners: Owners, spheres,
-                 anals, params, time, voxel_size, model, krec=None):
-    """Evaluate one non-fused contact class through the model's Python
-    function. `krec` carries BODY-frame omg (pack_kinematics default).
-    Returns dict(table, rec_a, rec_b) with the per-contact wrench records
-    [force(3), body-frame torque(3)] of each side."""
-    if kind != "sa":
+                 tris, anals, params, time, voxel_size, model, krec=None):
+    """Evaluate one non-fused contact class ("st" or "sa") through the
+    model's Python function. `krec` carries BODY-frame omg
+    (pack_kinematics default). Returns dict(table, rec_a, rec_b) with the
+    per-contact wrench records [force(3), body-frame torque(3)] of each
+    side."""
+    if kind not in ("st", "sa"):
         raise NotImplementedError(
             f"contact_pass({kind!r}) is not ported; the torch package's "
             "SS tables run the fused pass")
@@ -411,22 +423,31 @@ def contact_pass(kind, table: ContactTable, owners: Owners, spheres,
     geo_wc_a = {k: v[iA] for k, v in spheres.wildcards.items()}
     d = rel_pos(B["vox"], B["loc"], A["vox"], A["loc"], voxel_size)
 
-    obj_pos = d + quat.rotate(B["quat"], s[9:12].T)
-    obj_dir = quat.rotate(B["quat"], s[12:15].T)
-    size = torch.cat([s[15:16].T, torch.zeros((s.shape[1], 2), dtype=F,
-                                               device=s.device)], dim=1)
-    overlap, b2a, cp = narrowphase.sphere_analytical(
-        rel_a, rad_a, s[8].to(I), obj_pos, obj_dir, size, s[16])
+    if kind == "st":
+        nodes_l = s[8:17].T.reshape(-1, 3, 3)
+        nodes = quat.rotate(B["quat"][:, None, :], nodes_l) + d[:, None, :]
+        overlap, b2a, cp = narrowphase.sphere_triangle(
+            rel_a, rad_a, nodes[:, 0], nodes[:, 1], nodes[:, 2])
+        geo_wc_b = {k: v[iB] for k, v in tris.wildcards.items()}
+        ctype = SPHERE_MESH_CONTACT
+    else:
+        obj_pos = d + quat.rotate(B["quat"], s[9:12].T)
+        obj_dir = quat.rotate(B["quat"], s[12:15].T)
+        size = torch.cat([s[15:16].T, torch.zeros(
+            (s.shape[1], 2), dtype=F, device=s.device)], dim=1)
+        overlap, b2a, cp = narrowphase.sphere_analytical(
+            rel_a, rad_a, s[8].to(I), obj_pos, obj_dir, size, s[16])
+        geo_wc_b = {k: v[iB] for k, v in anals.wildcards.items()}
+        ctype = SPHERE_ANALYTICAL_CONTACT
     rad_b = torch.full_like(rad_a, HUGE_FLOAT)
-    geo_wc_b = {k: v[iB] for k, v in anals.wildcards.items()}
 
     cp_a = cp  # relative to owner A's CoM, global orientation
     cp_b = cp - d
     ctx = ContactContext(
         overlap=overlap, b2a=b2a, cp_a=cp_a, cp_b=cp_b,
         a_radius=rad_a, b_radius=rad_b,
-        contact_type=torch.full(overlap.shape, SPHERE_ANALYTICAL_CONTACT,
-                                dtype=I, device=overlap.device),
+        contact_type=torch.full(overlap.shape, ctype, dtype=I,
+                                device=overlap.device),
         a_lin_vel=A["vel"], b_lin_vel=B["vel"],
         a_rot_vel=A["omg"], b_rot_vel=B["omg"],
         a_quat=A["quat"], b_quat=B["quat"],

@@ -3,7 +3,11 @@
 ``find_pairs_ss`` returns the (idA < idB) pairs of spheres closer than
 their summed reach, of different owners and of enabled family pairs,
 compacted into a `cap`-row table, with the full count (which may exceed
-`cap`; the caller raises OVF_SS_CAP).
+`cap`; the caller raises OVF_SS_CAP), and the sorted table it searched
+(the ST search reuses it). With `member` the search runs over that
+subset of the spheres only (the two classes of the two-class CD): the
+others sort into the table's sentinel tail and are neither rows nor
+candidates.
 
 The sorted sphere table (``binning.build_sphere_table``) is tensor code.
 On CUDA tensors ``csrc/sweep.cu`` then searches it in one launch after
@@ -27,20 +31,24 @@ from . import binning
 
 
 def find_pairs_ss(pos, reach, owner, family, family_mask, bin_size, nb,
-                  cap):
-    """Returns (idA, idB, count)."""
+                  cap, member=None):
+    """Returns (idA, idB, count, table)."""
     S = pos.shape[0]
     tab = binning.build_sphere_table(pos, reach, owner, family, bin_size,
-                                     nb, max(S, 1))
+                                     nb, max(S, 1), member=member)
     if not pos.is_cuda:
-        return binning.sweep_table(tab, S, family_mask, nb, cap,
-                                   int(tab.max_occ))
-    return sweep_table_cuda(tab, S, family_mask, nb, cap)
+        pairs = binning.sweep_table(tab, S, family_mask, nb, cap,
+                                    int(tab.max_occ))
+    else:
+        pairs = sweep_table_cuda(tab, S, family_mask, nb, cap)
+    return (*pairs, tab)
 
 
 def sweep_table_cuda(tab, n_spheres, family_mask, nb, cap):
     """Kernel C over a sorted table: one memset of its output buffer and
-    one launch, nothing read back. Returns (idA, idB, count), the count a
+    one launch, nothing read back. Rows of the sentinel bin (padding, and
+    the spheres a member table leaves out, which sort into its tail) are
+    neither rows nor candidates. Returns (idA, idB, count), the count a
     device scalar."""
     spad = tab.n_rows
     dev = tab.rec.device

@@ -1,12 +1,14 @@
 """The solver engine: contact-table refresh + dynamics stepping.
 
-``refresh_contacts`` rebuilds the contact tables every K steps (sphere
-pairs through kernel C, sphere-floor pairs by brute force, history
-carried, tables sorted and denormalized); ``dynamics_step`` then runs K
-times against the frozen tables (the fused SS pass, kernel B, with its
-wrench sums, kernel A; the SA table through ``contact_pass`` and kernel
-A; integration). Contact margins sized by K·h·velocity keep the stale
-table exact.
+``refresh_contacts`` rebuilds the contact tables every K steps: sphere
+pairs through kernel C (once on one grid, or, in two-class mode, twice
+on member tables with the cross search between), sphere-triangle pairs
+by the two-stage ST sweep over the same sorted spheres, sphere-floor
+pairs by brute force; history carried, tables sorted and denormalized.
+``dynamics_step`` then runs K times against the frozen tables (the fused
+SS pass, kernel B, with its wrench sums, kernel A; the ST and SA tables
+through ``contact_pass`` and kernel A; integration). Contact margins
+sized by K·h·velocity keep the stale table exact.
 
 Host protocol: ``Engine.refresh`` reads one overflow word per refresh.
 On a capacity overflow it grows the table (or the unique-fetch lists)
@@ -30,17 +32,23 @@ from .initializer import ss_uniq_rows
 from .ops.fused_force import fused_wrench_ss
 from .state import (
     OVF_AVG_CONTACTS,
+    OVF_LCAP,
     OVF_SA_CAP,
     OVF_SS_CAP,
+    OVF_ST_CAP,
+    OVF_ST_OCC,
+    OVF_TRI_BINS,
     OVF_UNIQ,
     OVF_VEL,
+    OVF_XOCC,
     RuntimeParams,
     SimState,
     SolverConfig,
 )
 
 _GROWTH = 1.6
-_CAP_OVF = OVF_SS_CAP | OVF_SA_CAP | OVF_UNIQ
+_CAP_OVF = (OVF_SS_CAP | OVF_ST_CAP | OVF_SA_CAP | OVF_TRI_BINS
+            | OVF_ST_OCC | OVF_UNIQ | OVF_XOCC | OVF_LCAP)
 
 
 def _norm(v):
@@ -96,6 +104,14 @@ def owner_margin(owners, idx, arm, params):
 # ---------------------------------------------------------------------------
 
 
+def tri_world_nodes(owners, tris, voxel_size):
+    """f32 LBF-relative triangle nodes, (T, 3, 3)."""
+    own = tris.owner.long()
+    base = voxel.decode_f32(owners.vox[own], owners.loc[own], voxel_size)
+    return base[:, None, :] + quat.rotate(owners.quat[own][:, None, :],
+                                          tris.nodes)
+
+
 def ss_search_inputs(state: SimState, params: RuntimeParams,
                      voxel_size: float) -> dict:
     """Sphere positions, reaches and grid of the SS pair search, plus
@@ -114,13 +130,152 @@ def ss_search_inputs(state: SimState, params: RuntimeParams,
                 pos_cd=pos[:, perm], reach=reach, owner=spheres.owner,
                 family=owners.family[spheres.owner.long()],
                 family_mask=params.family_mask, bin_size=bin_size,
-                nb_cd=nb[perm])
+                nb_cd=nb[perm], dom_cd=params.domain[perm], perm=perm)
+
+
+def _cross_lcap(cfg, n_spheres: int) -> int:
+    """Rows of the two-class compacted large class (cfg.cross_lcap, or
+    by default a third of the spheres, 128-aligned; OVF_LCAP grows it),
+    never more than the spheres."""
+    cap = cfg.cross_lcap or max(256, -(-(n_spheres // 3 + 1) // 128) * 128)
+    return min(cap, max(n_spheres, 1))
+
+
+def two_class_inputs(q, small, params, cfg, n_spheres):
+    """The two classes of the two-class CD (``cfg.cd_two_class``), each
+    ready for a member-table search.
+
+    The large class is compacted to `_cross_lcap` rows (dead rows keep
+    real positions, so their member flag sends them to the table's
+    sentinel tail) and gets a coarse grid whose cell covers both the
+    large-large distance and the largest cross distance (reach_s +
+    reach_l: margins can lift a small sphere's reach above the large
+    class's); the small class gets its own fine grid. Returns a dict:
+    `large` and `small`, each the argument tuple (pos, reach, owner,
+    family, bin_size, nb, member) of its search; `orig_l` (compacted row
+    -> sphere id, S on dead rows), `reach_s`, `lcap_ovf`."""
+    reach, owner, fam = q["reach"], q["owner"], q["family"]
+    large = ~small
+    reach_s = torch.where(small, reach, 0.0).max()
+    reach_l = torch.where(large, reach, 0.0).max()
+    bs_l, nb_l = binning.build_grid(
+        q["dom_cd"], torch.maximum(reach_l, 0.5 * (reach_s + reach_l)),
+        params.bin_factor)
+    ((pos_c, reach_c, own_c, fam_c), orig_l, live_l, _,
+     lcap_ovf) = binning.compact_member(large, _cross_lcap(cfg, n_spheres),
+                                        q["pos_cd"], reach, owner, fam)
+    bs_s, nb_s = binning.build_grid(q["dom_cd"], reach_s,
+                                    params.bin_factor)
+    return dict(
+        large=(pos_c, torch.where(live_l, reach_c, -1e30),
+               torch.where(live_l, own_c, -1), torch.where(live_l, fam_c, 0),
+               bs_l, nb_l, live_l),
+        small=(q["pos_cd"], reach, owner, fam, bs_s, nb_s, small),
+        orig_l=orig_l, reach_s=reach_s, lcap_ovf=lcap_ovf)
+
+
+def cross_pairs(q, tc, small, cfg, n_spheres, base=None, outs=None):
+    """The small-large pairs of the two-class CD: the large spheres'
+    multi-bin entries on the coarse grid, each small sphere scanning its
+    own bin. Appends into (`outs`, `base`); returns (idA, idB, count,
+    occupancy overflow: OVF_XOCC)."""
+    pos_c, reach_c, own_c, fam_c, bs_l, nb_l, live_l = tc["large"]
+    rec_l = torch.cat(
+        [pos_c, reach_c[:, None], own_c.to(F)[:, None],
+         fam_c.to(F)[:, None],
+         torch.clamp(tc["orig_l"], max=n_spheres).to(F)[:, None]], dim=1)
+    eb, el, occ_x = binning.build_cross_entries(
+        pos_c, torch.clamp(reach_c + tc["reach_s"], min=0.0), live_l, bs_l,
+        nb_l)
+    idA, idB, n = binning.find_pairs_cross_fine(
+        q["pos_cd"], q["reach"], q["owner"], q["family"], small, rec_l, eb,
+        el, q["family_mask"], bs_l, nb_l, cfg.cap_ss, cfg.cross_mpb,
+        base=base, outs=outs)
+    return idA, idB, n, torch.where(occ_x > cfg.cross_mpb, OVF_XOCC, 0)
+
+
+def two_class_pairs(q, small, params, cfg, n_spheres):
+    """The SS pairs of the two-class CD: kernel C twice, on the member
+    tables of ``two_class_inputs``, and ``cross_pairs`` between. The list
+    is the small-small pairs, then the large-large and small-large ones.
+    Returns (idA, idB, count, small table, overflow bits: OVF_XOCC,
+    OVF_LCAP)."""
+    cap = cfg.cap_ss
+    mask = q["family_mask"]
+    tc = two_class_inputs(q, small, params, cfg, n_spheres)
+    pos_c, reach_c, own_c, fam_c, bs_l, nb_l, live_l = tc["large"]
+    idA, idB, n_ll, _ = sweep.find_pairs_ss(
+        pos_c, reach_c, own_c, fam_c, mask, bs_l, nb_l, cap, member=live_l)
+    # compacted -> sphere ids (the compaction is stable: idA < idB holds)
+    orig_l = tc["orig_l"]
+    idA = torch.where(idA >= 0, orig_l[torch.clamp(idA, min=0).long()], -1)
+    idB = torch.where(idB >= 0, orig_l[torch.clamp(idB, min=0).long()], -1)
+    idA, idB, n_xl, ovf = cross_pairs(
+        q, tc, small, cfg, n_spheres, base=torch.clamp(n_ll, max=cap).to(I),
+        outs=(idA, idB))
+    pos_s, reach_s, own_s, fam_s, bs_s, nb_s, _ = tc["small"]
+    idA_s, idB_s, n_sss, tab = sweep.find_pairs_ss(
+        pos_s, reach_s, own_s, fam_s, mask, bs_s, nb_s, cap, member=small)
+    # the (L-L + S-L) list goes after the S-S list; rows past cap drop
+    k = torch.arange(cap, dtype=I, device=idA.device)
+    dest = torch.where(idA >= 0, k + torch.clamp(n_sss, max=cap), cap)
+    dest = torch.clamp(dest, max=cap).long()
+    outA = torch.cat([idA_s, idA_s.new_zeros(1)])
+    outB = torch.cat([idB_s, idB_s.new_zeros(1)])
+    outA[dest] = idA
+    outB[dest] = idB
+    ovf = (ovf | torch.where(tc["lcap_ovf"], OVF_LCAP, 0)).to(I)
+    return outA[:cap], outB[:cap], n_sss + n_xl, tab, ovf
+
+
+def st_pairs(state, params, cfg, q, tab):
+    """The sphere-triangle pairs of a refresh and their overflow bits
+    (OVF_ST_OCC, OVF_TRI_BINS): the two-stage sweep over the SS search's
+    sorted table `tab` (in two-class mode a single-grid table of all
+    spheres, built here, takes its place), or, once cfg.st_bruteforce is
+    set, the exact S x T matrix."""
+    owners, spheres, tris = state.owners, state.spheres, state.tris
+    dev = state.device
+    nodes = tri_world_nodes(owners, tris, cfg.voxel_size)
+    arm = _norm(tris.nodes).max(dim=-1).values
+    m_t = owner_margin(owners, tris.owner, arm, params)
+    tri_fam = owners.family[tris.owner.long()]
+    if cfg.st_bruteforce:
+        # facets too large for bin enumeration: O(S*T) candidates in
+        # world axes, compacted like the sphere-analytical pairs
+        ovl, _, _ = narrowphase.sphere_triangle(
+            q["pos"][:, None, :], spheres.radius[:, None],
+            nodes[None, :, 0], nodes[None, :, 1], nodes[None, :, 2])
+        ovl_m = ovl + q["margin"][:, None] + m_t[None, :]
+        tA, tB, n_st = binning.find_pairs_sa(
+            ovl_m, spheres.owner, q["family"], tris.owner, tri_fam,
+            params.family_mask, cfg.cap_st)
+        return tA, tB, n_st, torch.zeros((), dtype=I, device=dev)
+    if cfg.cd_two_class:
+        tab = binning.build_sphere_table(
+            q["pos_cd"], q["reach"], q["owner"], q["family"],
+            q["bin_size"], q["nb_cd"], max(spheres.n, 1))
+    # the table's axes are the relabelled ones; so are the nodes here
+    nodes_cd = nodes[:, :, q["perm"]]
+    amin = nodes_cd.min(dim=1).values - m_t[:, None]
+    amax = nodes_cd.max(dim=1).values + m_t[:, None]
+    tA, tB, n_st, span_ovf = binning.find_pairs_st(
+        amin, amax, tris.owner, tri_fam, tab, params.family_mask,
+        q["bin_size"], q["nb_cd"], cfg.cap_st, cfg.max_tri_span,
+        cfg.max_per_bin, amin - q["reach"].max(), amax + q["reach"].max(),
+        nodes_cd, m_t)
+    # the sweep scans max_per_bin slots of a bin; no SS search bounds
+    # the table's occupancy, so a denser bin grows the scan
+    ovf = (torch.where(tab.max_occ > cfg.max_per_bin, OVF_ST_OCC, 0)
+           | torch.where(span_ovf, OVF_TRI_BINS, 0)).to(I)
+    return tA, tB, n_st, ovf
 
 
 def refresh_contacts(state: SimState, params: RuntimeParams,
                      cfg: SolverConfig) -> SimState:
     vs = cfg.voxel_size
-    owners, spheres, anals = state.owners, state.spheres, state.anals
+    owners, spheres, tris, anals = (state.owners, state.spheres,
+                                    state.tris, state.anals)
     wc_names = cfg.force_model.contact_wildcards
     dev = state.device
 
@@ -131,18 +286,35 @@ def refresh_contacts(state: SimState, params: RuntimeParams,
     max_vel = torch.where(torch.all(torch.isfinite(raw_absv)),
                           raw_absv.max(), torch.inf).to(F)
 
-    idA, idB, n_ss = sweep.find_pairs_ss(
-        q["pos_cd"], q["reach"], spheres.owner, sph_family,
-        params.family_mask, q["bin_size"], q["nb_cd"], cfg.cap_ss)
+    if cfg.cd_two_class:
+        idA, idB, n_ss, tab, overflow = two_class_pairs(
+            q, spheres.radius <= params.cls_thr, params, cfg, spheres.n)
+    else:
+        idA, idB, n_ss, tab = sweep.find_pairs_ss(
+            q["pos_cd"], q["reach"], spheres.owner, sph_family,
+            params.family_mask, q["bin_size"], q["nb_cd"], cfg.cap_ss)
+        overflow = torch.zeros((), dtype=I, device=dev)
     ss, lost_ss = history.carry_history(
         state.ss, idA, idB, torch.clamp(n_ss, max=cfg.cap_ss).to(I),
         wc_names)
-    overflow = torch.where(n_ss > cfg.cap_ss, OVF_SS_CAP, 0).to(I)
-    ss = forces.finalize_table("ss", ss, owners, spheres, anals, params,
-                               cfg.force_model, uniq_cap=cfg.uniq_cap)
+    overflow |= torch.where(n_ss > cfg.cap_ss, OVF_SS_CAP, 0).to(I)
+    ss = forces.finalize_table("ss", ss, owners, spheres, tris, anals,
+                               params, cfg.force_model,
+                               uniq_cap=cfg.uniq_cap)
     if cfg.uniq_cap:
         overflow |= torch.where(ss.uniq_max > cfg.uniq_cap, OVF_UNIQ,
                                 0).to(I)
+
+    st, lost_st = state.st, torch.zeros((), dtype=I, device=dev)
+    if tris.n > 0:
+        tA, tB, n_st, ovf_st = st_pairs(state, params, cfg, q, tab)
+        st, lost_st = history.carry_history(
+            state.st, tA, tB, torch.clamp(n_st, max=cfg.cap_st).to(I),
+            wc_names)
+        st = forces.finalize_table("st", st, owners, spheres, tris, anals,
+                                   params, cfg.force_model)
+        overflow |= ovf_st | torch.where(n_st > cfg.cap_st, OVF_ST_CAP,
+                                         0).to(I)
 
     sa, lost_sa = state.sa, torch.zeros((), dtype=I, device=dev)
     if anals.n > 0:
@@ -164,7 +336,7 @@ def refresh_contacts(state: SimState, params: RuntimeParams,
         sa, lost_sa = history.carry_history(
             state.sa, aA, aB, torch.clamp(n_sa, max=cfg.cap_sa).to(I),
             wc_names)
-        sa = forces.finalize_table("sa", sa, owners, spheres, anals,
+        sa = forces.finalize_table("sa", sa, owners, spheres, tris, anals,
                                    params, cfg.force_model)
         overflow |= torch.where(n_sa > cfg.cap_sa, OVF_SA_CAP, 0).to(I)
 
@@ -174,8 +346,8 @@ def refresh_contacts(state: SimState, params: RuntimeParams,
     overflow |= torch.where(avg_cnt > params.error_out_avg_contacts,
                             OVF_AVG_CONTACTS, 0).to(I)
     return state.replace(
-        ss=ss, sa=sa, overflow=overflow, max_vel=max_vel,
-        lost_contacts=state.lost_contacts + lost_ss + lost_sa,
+        ss=ss, st=st, sa=sa, overflow=overflow, max_vel=max_vel,
+        lost_contacts=state.lost_contacts + lost_ss + lost_st + lost_sa,
     )
 
 
@@ -199,7 +371,7 @@ def dynamics_step(state: SimState, params: RuntimeParams,
     n = owners.n
 
     # one (n, 6) wrench accumulator per step: the SS sums create it and
-    # the SA sums add onto it in place
+    # the ST and SA sums add onto it in place
     ss = state.ss
     if state.spheres.n > 0 and ss.cap > 0:
         krec_w = forces.pack_kinematics(owners, world_omg=True)
@@ -208,22 +380,30 @@ def dynamics_step(state: SimState, params: RuntimeParams,
     else:
         acc = torch.zeros((n, 6), dtype=F, device=state.device)
     f_acc, t_acc = acc[:, :3], acc[:, 3:]
-    sa = state.sa
-    if state.anals.n > 0 and sa.cap > 0 and state.spheres.n > 0:
-        krec = forces.pack_kinematics(owners)  # body-frame omg
+    wide = {"st": state.st, "sa": state.sa}
+    passes = []
+    krec = None  # body-frame omg, packed once for both tables
+    for kind, n_geo in (("st", state.tris.n), ("sa", state.anals.n)):
+        if n_geo == 0 or wide[kind].cap == 0 or state.spheres.n == 0:
+            continue
+        if krec is None:
+            krec = forces.pack_kinematics(owners)
         p = forces.contact_pass(
-            "sa", sa, owners, state.spheres, state.anals, params,
-            state.time, cfg.voxel_size, model, krec=krec)
-        sa = p["table"]
-        forces.reduce_wrench_segment(n, [p], out=acc)
+            kind, wide[kind], owners, state.spheres, state.tris,
+            state.anals, params, state.time, cfg.voxel_size, model,
+            krec=krec)
+        wide[kind] = p["table"]
+        passes.append(p)
+    forces.reduce_wrench_segment(n, passes, out=acc)
 
     owners = integrator.integrate_owners(
         owners, f_acc, t_acc, params, tables, cfg.voxel_size,
         cfg.integrator, state.time)
     owners = integrator.apply_family_changes(
         owners, cfg.family_changes, cfg.voxel_size, state.time)
-    return state.replace(owners=owners, ss=ss, sa=sa,
-                         time=state.time + params.h, step=state.step + 1)
+    return state.replace(owners=owners, ss=ss, st=wide["st"],
+                         sa=wide["sa"], time=state.time + params.h,
+                         step=state.step + 1)
 
 
 def run_steps(state: SimState, params: RuntimeParams, cfg: SolverConfig,
@@ -253,13 +433,44 @@ class Engine:
     def grow_for(self, state: SimState, ovf: int) -> SimState:
         """Grow the capacities named by the overflow bits. A unique-fetch
         overflow doubles the per-block list capacity up to 2048, past
-        which kernel B (the direct gather) takes over: uniq_cap 0."""
+        which kernel B (the direct gather) takes over: uniq_cap 0. A
+        triangle box past `max_tri_span` bins doubles the span up to 32,
+        past which the ST search takes the exact S x T matrix."""
         cfg = self.cfg
         changes = {}
-        if ovf & OVF_SS_CAP:
-            changes["cap_ss"] = int(cfg.cap_ss * _GROWTH) + 64
-        if ovf & OVF_SA_CAP:
-            changes["cap_sa"] = int(cfg.cap_sa * _GROWTH) + 64
+        for bit, name in ((OVF_SS_CAP, "cap_ss"), (OVF_ST_CAP, "cap_st"),
+                          (OVF_SA_CAP, "cap_sa")):
+            if ovf & bit:
+                changes[name] = int(getattr(cfg, name) * _GROWTH) + 64
+        if ovf & OVF_ST_OCC:
+            mpb = int(cfg.max_per_bin * _GROWTH) + 8
+            if mpb > 1024:
+                raise RuntimeError(
+                    "bin occupancy exploded (max_per_bin would exceed "
+                    "1024): the simulation has likely diverged: huge "
+                    "velocities inflate the CD margins until every sphere "
+                    "lands in one bin. Check the time step and stiffness, "
+                    "or SetMaxVelocity to cap the margins.")
+            changes["max_per_bin"] = mpb
+        if ovf & OVF_TRI_BINS:
+            if cfg.max_tri_span >= 32:
+                changes["st_bruteforce"] = True
+            else:
+                changes["max_tri_span"] = min(cfg.max_tri_span * 2, 32)
+        if ovf & OVF_XOCC:
+            mx = int(cfg.cross_mpb * _GROWTH) + 8
+            if mx > 2048:
+                raise RuntimeError(
+                    "cross-class entry-bin occupancy exploded (cross_mpb "
+                    "would exceed 2048): the simulation has likely "
+                    "diverged, or the class threshold puts nearly "
+                    "everything in the large class.")
+            changes["cross_mpb"] = mx
+        if ovf & OVF_LCAP:
+            n_sph = state.spheres.n
+            changes["cross_lcap"] = min(
+                -(-int(_cross_lcap(cfg, n_sph) * _GROWTH + 128) // 128)
+                * 128, max(n_sph, 1))
         if ovf & OVF_UNIQ:
             changes["uniq_cap"] = (cfg.uniq_cap * 2 if cfg.uniq_cap < 2048
                                    else 0)
@@ -275,7 +486,8 @@ class Engine:
                                  device=state.device),
                 blk_start=torch.zeros((n_starts,), dtype=I,
                                       device=state.device))
-        return state.replace(ss=ss, sa=state.sa.grown(self.cfg.cap_sa))
+        return state.replace(ss=ss, st=state.st.grown(self.cfg.cap_st),
+                             sa=state.sa.grown(self.cfg.cap_sa))
 
     def maybe_shrink(self, state: SimState) -> SimState:
         """Shrink a table whose capacity exceeds 1.4x what its count

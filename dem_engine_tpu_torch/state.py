@@ -70,8 +70,7 @@ class Spheres(_Replace):
 
 @dataclasses.dataclass
 class Triangles(_Replace):
-    """Triangle-mesh facets. The port's slice runs without meshes, so only
-    the empty set is built (``initializer.empty_triangles``)."""
+    """Triangle-mesh facets, node positions in the owner's body frame."""
 
     owner: torch.Tensor   # i32[T]
     nodes: torch.Tensor   # f32[T,3,3] body frame
@@ -302,8 +301,9 @@ class ContactTable(_Replace):
 
 
 # overflow bit flags, surfaced to the host after each refresh (same
-# values as the JAX package). The port's windowless sweep kernel never
-# raises OVF_BIN_OCC or OVF_PALLAS_WIN.
+# values as the JAX package). The port's windowless sweep kernel keeps
+# any number of hits per bin, so OVF_BIN_OCC and OVF_PALLAS_WIN never
+# rise, in two-class mode either.
 OVF_SS_CAP = 1
 OVF_ST_CAP = 2
 OVF_SA_CAP = 4
@@ -378,6 +378,21 @@ class SolverConfig:
     cap_ss: int = 64
     cap_st: int = 16
     cap_sa: int = 16
+    #: spheres per bin the ST sweep scans (OVF_ST_OCC grows it)
+    max_per_bin: int = 16
+    #: bins per axis a triangle's box may cover (OVF_TRI_BINS doubles it
+    #: up to 32, then switches to the exact S x T candidate matrix)
+    max_tri_span: int = 4
+    st_bruteforce: bool = False
+    #: two-class polydisperse CD: spheres of radius <= params.cls_thr are
+    #: the small class, searched on their own grid; the large class is
+    #: compacted to `cross_lcap` rows (0 = a third of the spheres) on a
+    #: coarse grid, and small-large pairs come from the large spheres'
+    #: multi-bin entries, `cross_mpb` scanned per coarse bin (OVF_LCAP and
+    #: OVF_XOCC grow them)
+    cd_two_class: bool = False
+    cross_lcap: int = 0
+    cross_mpb: int = 16
     #: per-block capacity of the unique-other-owner lists of kernel B-ub
     #: (0 = off: kernel B gathers each row's B record itself)
     uniq_cap: int = 0

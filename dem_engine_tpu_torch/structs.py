@@ -1,9 +1,9 @@
 """Host-side user-facing staging objects.
 
-DEMMaterial, DEMClumpTemplate, DEMClumpBatch and DEMExternObj, as the
-JAX package's ``structs`` defines them (meshes come with the triangle
-slice). These are plain-Python staging objects; ``DEMSolver.Initialize``
-flattens them into device tensors.
+DEMMaterial, DEMClumpTemplate, DEMClumpBatch, DEMExternObj and
+DEMMeshConnected, as the JAX package's ``structs`` defines them. These
+are plain-Python staging objects; ``DEMSolver.Initialize`` flattens them
+into device tensors.
 """
 
 from __future__ import annotations
@@ -273,3 +273,88 @@ class DEMExternObj:
             stacklevel=2,
         )
         return self
+
+
+@dataclasses.dataclass(eq=False)
+class DEMMeshConnected:
+    """A triangle mesh (reference DEMMeshConnected, BdrsAndObjs.h:230-585).
+
+    Vertices are stored in the owner's body frame; `init_pos`/`init_quat`
+    place the owner in the world at Initialize.
+    """
+
+    vertices: np.ndarray                 # (V,3)
+    faces: np.ndarray                    # (T,3) int
+    material: Optional[DEMMaterial] = None
+    face_materials: Optional[np.ndarray] = None
+    family: int = DEFAULT_FAMILY
+    mass: float = 1e30
+    moi: Tuple[float, float, float] = (1e30, 1e30, 1e30)
+    init_pos: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    init_quat: Tuple[float, float, float, float] = (1.0, 0.0, 0.0, 0.0)
+    name: Optional[str] = None
+    owner_id: Optional[int] = None
+    tri_offset: Optional[int] = None     # first triangle index at Initialize
+    face_normals: Optional[np.ndarray] = None  # (T,3) body frame, from vn
+    use_mesh_normals: bool = False       # honor source normals in output
+
+    @property
+    def n_tri(self) -> int:
+        return int(np.asarray(self.faces).shape[0])
+
+    def GetNumTriangles(self):
+        return self.n_tri
+
+    def GetNumNodes(self):
+        return int(np.asarray(self.vertices).shape[0])
+
+    def SetFamily(self, f: int):
+        self.family = int(f)
+
+    def SetMass(self, m: float):
+        self.mass = float(m)
+
+    def SetMOI(self, moi):
+        self.moi = tuple(np.asarray(moi, np.float64))
+
+    def SetInitPos(self, pos):
+        self.init_pos = tuple(np.asarray(pos, np.float64))
+
+    def SetInitQuat(self, q):
+        self.init_quat = tuple(np.asarray(q, np.float64))
+
+    def SetMaterial(self, mat: DEMMaterial):
+        self.material = mat
+
+    def Move(self, vec):
+        self.vertices = np.asarray(self.vertices, np.float64) + np.asarray(vec)
+        return self
+
+    def Scale(self, s):
+        self.vertices = np.asarray(self.vertices, np.float64) * s
+        return self
+
+    def Mirror(self, plane_point, plane_normal):
+        """Mirror across a plane (reference BdrsAndObjs.h Mirror)."""
+        p = np.asarray(plane_point, np.float64)
+        n = np.asarray(plane_normal, np.float64)
+        n = n / np.linalg.norm(n)
+        v = np.asarray(self.vertices, np.float64)
+        d = (v - p) @ n
+        self.vertices = v - 2.0 * d[:, None] * n
+        # flip winding to keep outward normals
+        self.faces = np.asarray(self.faces)[:, ::-1].copy()
+        return self
+
+    def GetCoordsVertices(self):
+        return np.asarray(self.vertices)
+
+    def GetTriangles(self):
+        return np.asarray(self.vertices)[np.asarray(self.faces)]
+
+    def UseNormals(self, use: bool = True):
+        """Honor the source file's vertex normals in mesh output (needs
+        the OBJ to declare vn and the mesh to be loaded with
+        load_normals); facet normals are recomputed from winding
+        otherwise."""
+        self.use_mesh_normals = bool(use)

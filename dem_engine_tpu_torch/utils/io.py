@@ -1,7 +1,8 @@
-"""Output writers: CSV tables and the npz binary format.
+"""Output writers: CSV tables, the npz binary format and meshes.
 
 Column names follow the JAX package's writers (``x,y,z,r,owner,absv,
-family`` for spheres; ``A,B,contact_type,x,y,z,f_x,...`` for contacts).
+family`` for spheres; ``A,B,contact_type,x,y,z,f_x,...`` for contacts);
+meshes go out as legacy VTK polydata.
 A numeric table is written with ``%.9g``, as the JAX package's native
 writer does; a table with non-numeric columns goes through ``csv``.
 """
@@ -89,3 +90,24 @@ def write_contacts_csv(path, idA, idB, ctype, point=None, force=None,
     for k, v in (wildcards or {}).items():
         cols[k] = v
     write_table(path, cols, fmt)
+
+
+def write_mesh_vtk(path, vertices, faces, normals=None):
+    """Legacy-VTK polydata mesh with per-facet normals as CELL_DATA."""
+    v = np.asarray(vertices, np.float64)
+    f = np.asarray(faces, np.int64)
+    with open(path, "w") as out:
+        out.write("# vtk DataFile Version 3.0\n")
+        out.write("dem_engine_tpu mesh\nASCII\nDATASET POLYDATA\n")
+        out.write(f"POINTS {len(v)} double\n")
+        for p in v:
+            out.write(f"{p[0]} {p[1]} {p[2]}\n")
+        out.write(f"POLYGONS {len(f)} {4 * len(f)}\n")
+        for tri in f:
+            out.write(f"3 {tri[0]} {tri[1]} {tri[2]}\n")
+        if normals is not None:
+            out.write(f"CELL_DATA {len(f)}\n")
+            out.write("NORMALS facet_normals double\n")
+            for p in np.asarray(normals, np.float64):
+                out.write(f"{p[0]} {p[1]} {p[2]}\n")
+

@@ -83,8 +83,8 @@ def bed_uniq(bed):
 def test_segred_kernel_matches_plain(bed):
     cfg, state, params = bed
     p = forces.contact_pass("sa", state.sa, state.owners, state.spheres,
-                            state.anals, params, state.time, cfg.voxel_size,
-                            cfg.force_model)
+                            state.tris, state.anals, params, state.time,
+                            cfg.voxel_size, cfg.force_model)
     n = state.owners.n
     g = torch.Generator(device="cuda").manual_seed(0)
     heavy = torch.sort(torch.randint(0, 8, (50_000,), device="cuda",
@@ -104,8 +104,8 @@ def test_segred_pair_kernel_matches_plain(bed):
     a given one; an all-dead table adds nothing."""
     cfg, state, params = bed
     p = forces.contact_pass("sa", state.sa, state.owners, state.spheres,
-                            state.anals, params, state.time, cfg.voxel_size,
-                            cfg.force_model)
+                            state.tris, state.anals, params, state.time,
+                            cfg.voxel_size, cfg.force_model)
     n = state.owners.n
     ss, sa = state.ss, p["table"]
     krec = forces.pack_kinematics(state.owners, world_omg=True)
@@ -466,7 +466,7 @@ def test_sweep_kernel_matches_plain(bed):
         assert torch.equal(ka, pa) and torch.equal(kb, pb)
 
 
-def _sweep_both(pos, reach, family, mask, cap, box=1.0):
+def _sweep_both(pos, reach, family, mask, cap, box=1.0, member=None):
     """find_pairs_ss on the card and on the CPU from the same arrays:
     the pair tables and counts must be identical."""
     out = {}
@@ -476,22 +476,27 @@ def _sweep_both(pos, reach, family, mask, cap, box=1.0):
         bs, nb = binning.build_grid(torch.full((3,), box, device=dev),
                                     t[1].max() if len(reach) else
                                     torch.tensor(0.01, device=dev))
-        out[dev] = sweep.find_pairs_ss(*t, torch.as_tensor(mask, device=dev),
-                                       bs, nb, cap)
-    (ka, kb, kn), (pa, pb, pn) = out["cuda"], out["cpu"]
+        out[dev] = sweep.find_pairs_ss(
+            *t, torch.as_tensor(mask, device=dev), bs, nb, cap,
+            member=None if member is None else torch.as_tensor(
+                member, device=dev))
+    (ka, kb, kn, _), (pa, pb, pn, _) = out["cuda"], out["cpu"]
     assert int(kn) == int(pn)
     assert torch.equal(ka.cpu(), pa) and torch.equal(kb.cpu(), pb)
     return int(pn)
 
 
 @pytest.mark.parametrize("case", ["overfull_bin", "sparse", "past_cap",
-                                  "no_sphere", "one_sphere"])
+                                  "no_sphere", "one_sphere", "member",
+                                  "member_past_cap", "member_none"])
 def test_sweep_kernel_edge_tables(case):
     """Kernel C against the plain sweep on tables the bed does not make:
     1,200 spheres in one bin (a window longer than the 512 staged
     slots), sparse random spheres whose 256-sphere tiles span many bin
-    rows (with a family mask), the same with a count past `cap`, and
-    tables of no sphere and of one."""
+    rows (with a family mask), the same with a count past `cap`, tables
+    of no sphere and of one, and member tables (a fifth of the spheres
+    left out, so sentinel rows fill the tail of the first S rows, with
+    and without a count past `cap`; no member at all)."""
     _need_card()
     rng = np.random.default_rng(3)
     f32 = np.float32
@@ -513,8 +518,13 @@ def test_sweep_kernel_edge_tables(case):
     reach = (0.012 * rng.uniform(0.8, 1.2, 20_000)).astype(f32)
     family = rng.integers(0, 3, 20_000).astype(np.int32)
     mask[1, 2] = mask[2, 1] = False
-    cap = 100 if case == "past_cap" else 200_000
-    assert _sweep_both(pos, reach, family, mask, cap) > 1000
+    cap = 100 if case.endswith("past_cap") else 200_000
+    member = None
+    if case.startswith("member"):
+        member = rng.uniform(size=20_000) < (0.0 if case == "member_none"
+                                             else 0.8)
+    n = _sweep_both(pos, reach, family, mask, cap, member=member)
+    assert n == 0 if case == "member_none" else n > 1000
 
 
 def test_engine_matches_cpu(bed):
@@ -536,3 +546,28 @@ def test_engine_matches_cpu(bed):
     b = {tuple(x) for x in torch.stack([c.ss.idA, c.ss.idB], 1)
          .numpy().tolist() if x[0] >= 0}
     assert a == b and np.isfinite(g.owners.loc.cpu().numpy()).all()
+
+
+def test_poly_engine_matches_cpu():
+    """The poly bed with its plate (two-class CD: kernel C on two member
+    tables; the ST table through kernel A): one refresh and 10 steps on
+    the card against the CPU, pair sets of SS, ST and SA equal, owner
+    vel/omg within 2e-4 (rolling resistance off)."""
+    _need_card()
+    legs = {}
+    for dev in ("cuda", "cpu"):
+        cfg, st, pr = build_case(2048, update_freq=10, poly_frac=0.2,
+                                 with_mesh=True, plate_grid=4,
+                                 plate_z=0.01, device=dev)
+        pr = pr.replace(pair_props={**pr.pair_props,
+                                    "Crr": torch.zeros((1, 1), device=dev)})
+        eng = Engine(cfg)
+        st = eng.refresh(st, pr)
+        sets = [{tuple(x) for x in torch.stack([t.idA, t.idB], 1).cpu()
+                 .numpy().tolist() if x[0] >= 0} for t in (st.ss, st.st,
+                                                            st.sa)]
+        legs[dev] = (run_steps(st, pr, eng.cfg, 10), sets)
+    (g, gs), (c, cs) = legs["cuda"], legs["cpu"]
+    assert gs == cs and len(cs[1]) > 0
+    assert _rel(c.owners.vel, g.owners.vel.cpu()) <= 2e-4
+    assert _rel(c.owners.omg, g.owners.omg.cpu()) <= 2e-4

@@ -66,7 +66,7 @@ def test_sweep_matches_jax(fam_block):
 
     tbs, tnb = tbinning.build_grid(torch.from_numpy(domain),
                                    torch.from_numpy(reach).max())
-    a3, b3, n3 = sweep.find_pairs_ss(
+    a3, b3, n3, _ = sweep.find_pairs_ss(
         torch.from_numpy(pos), torch.from_numpy(reach),
         torch.from_numpy(owner), torch.from_numpy(family),
         torch.from_numpy(mask), tbs, tnb, cap)
@@ -89,8 +89,9 @@ def test_sweep_count_past_capacity():
     args = [torch.from_numpy(x) for x in (pos, reach, owner, family)]
     mask = torch.ones((256, 256), dtype=torch.bool)
     bs, nb = tbinning.build_grid(torch.full((3,), 0.25), args[1].max())
-    a_full, b_full, n_full = sweep.find_pairs_ss(*args, mask, bs, nb, 16384)
-    a_cut, b_cut, n_cut = sweep.find_pairs_ss(*args, mask, bs, nb, 100)
+    a_full, b_full, n_full, _ = sweep.find_pairs_ss(*args, mask, bs, nb,
+                                                    16384)
+    a_cut, b_cut, n_cut, _ = sweep.find_pairs_ss(*args, mask, bs, nb, 100)
     assert int(n_cut) == int(n_full) > 100
     assert torch.equal(a_cut, a_full[:100])
     assert torch.equal(b_cut, b_full[:100])
