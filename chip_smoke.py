@@ -18,11 +18,16 @@ Phases, each printing its own numbers; any failure exits nonzero:
                block row starts) identical to its plain version; B-ub
                and B also on the API's own (shrunk) table; then, on the
                poly bed (below), C on both member tables of its two-class
-               CD (also past cap) and A on its ST table
+               CD (also past cap) and A on its ST table; C also under a
+               family mask (the bed's bottom layer in family 1, (1, 1)
+               disabled): identical to the plain sweep, no (1, 1) pair,
+               fewer pairs than with the all-true mask
   3 parity     the 4,096-clump bed: one refresh + 10 steps on the card
                (kernels) against the same on the CPU (plain versions),
                with rolling resistance off and with its default; the
-               4,096-clump poly bed: one refresh, pair sets (SS, ST, SA)
+               4,096-clump poly bed: one refresh, pair sets (SS, ST, SA);
+               the families scene (below) at 4,096 clumps, Crr = 0: one
+               chunk, pair sets and per-owner state
   4 main       Engine.advance on the 262,144-clump bed, K = 25: 100
                warm-up steps, then 250 timed steps; launch counts, memory,
                physics checks
@@ -42,17 +47,30 @@ Phases, each printing its own numbers; any failure exits nonzero:
                (DEMMeshConnected, 2*16^2 triangles) laid on the bed's top
                layer by AddWavefrontMeshObject; DoDynamics and a query
                with its ST block
-  7 device     torch.profiler, only after every timed run: the device time
+  7 families   DEMSolver on the API's mono lattice with families: the
+               bottom layer fixed (SetFamilyFixed) with its (1, 1)
+               contacts disabled, the 2*16^2-triangle plate laid on the top
+               layer and pressed down by a prescribed velocity of time, a
+               ChangeFamilyWhen rule moving the top layer's clumps under
+               the plate to a family with an added acceleration; the
+               rule's step against the host's count, K = 25, 250 timed
+               steps (launch counts, memory), K steps under
+               torch.cuda.set_sync_debug_mode("error"); the fixed layer
+               bit for bit, the plate's path against the integral of its
+               velocity, no (1, 1) pair in the contact query, physics
+  8 device     torch.profiler, only after every timed run: the device time
                and launches per call of the segment sums (A: a step's two
-               pair calls, D), of one C search, of the poly refresh's two
+               pair calls, D), of one C search (and one under the family
+               mask), of the poly refresh's two
                C searches, of B on the main path's table, and of the
                lists launch, B-ub and B on the API's table, against their
                bounds
-  8 uniq       the unique-fetch decision: the device time of one
+  9 uniq       the unique-fetch decision: the device time of one
                DoDynamics chunk (refresh + K steps) with unique fetch at
                512 and off, five alternating rounds (torch.profiler)
-  9 breakdown  for the main path, the poly path and each API path (the
-               poly one too), on a bed settled anew, one chunk: refresh
+  10 breakdown for the main path, the poly path, each API path (the
+               poly one too) and the families path, on a bed settled
+               anew, one chunk: refresh
                and steps timed apart, then the device time and launches
                of a step, and of one refresh, by operation; for the poly
                path also the refresh's device time split into C x2, the
@@ -82,7 +100,10 @@ POLY = dict(poly_frac=0.2, with_mesh=True, plate_grid=16,
 
 
 def fail(msg):
+    # on both streams: a caller that keeps only the end of stderr still
+    # sees which check failed
     print(f"[chip_smoke] FAIL: {msg}", flush=True)
+    print(f"[chip_smoke] FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -135,7 +156,8 @@ def device_rows(torch, fn, per=1):
 def phase_device_times(torch, n_clumps, k, kern, reps=10):
     """Device time and launches per call of each kernel from
     torch.profiler over `reps` calls: the segment sums (A, D), one C
-    search and B on the kernels phase's bed, built anew, and the lists
+    search (and one under the family mask of ``masked_table``) and B on
+    the kernels phase's bed, built anew, and the lists
     launch, B-ub and B on the API's table. The bound is held against this
     time, not against the event median, which for a few small launches is
     mostly host time between them. A step's sums must be one zeroing and
@@ -157,6 +179,8 @@ def phase_device_times(torch, n_clumps, k, kern, reps=10):
     tab = binning.build_sphere_table(q["pos_cd"], q["reach"], q["owner"],
                                      q["family"], q["bin_size"], q["nb_cd"],
                                      S)
+    tab_m, mask_m, _ = masked_table(torch, state, q, n_clumps,
+                                    cfg.voxel_size)
     h, vs, model = float(params.h), cfg.voxel_size, cfg.force_model
     krec = forces.pack_kinematics(state.owners, world_omg=True)
     s = api_table(n_clumps, k)
@@ -179,6 +203,10 @@ def phase_device_times(torch, n_clumps, k, kern, reps=10):
             ("C", "C, one search", lambda: sweep.sweep_table_cuda(
                 tab, S, q["family_mask"], q["nb_cd"], cfg.cap_ss), 2,
              kern["C"]["bound"][0]),
+            ("C-mask", "C under the family mask, one search",
+             lambda: sweep.sweep_table_cuda(tab_m, S, mask_m, q["nb_cd"],
+                                            cfg.cap_ss), 2,
+             kern["C"]["masked"]["bound"][0]),
             ("C2", "C, the poly refresh's two member searches",
              lambda: [sweep.sweep_table_cuda(t, rows, mask_p, nb, cap_p)
                       for t, rows, nb, _ in c2], 4,
@@ -193,19 +221,7 @@ def phase_device_times(torch, n_clumps, k, kern, reps=10):
              bound(*bytes_B(su, n_u, ub=True))[0]),
             ("B@api", "B on the API's table", lambda: hertz_rows_cuda(
                 su, krec_u, h, vs, model), 1, bound(*bytes_B(su, n_u))[0])):
-        totals = device_rows(torch, lambda: [fn() for _ in range(reps)])
-        if not totals:
-            fail(f"{tag}: the profiler recorded no device time")
-        # per call: each kernel's mean duration times its launches per
-        # call. The profiler now and then drops one of the first events of
-        # a profile, so a count may fall short of reps x launches, by at
-        # most a fifth
-        rows = [(ms / cnt * round(cnt / reps), round(cnt / reps), name)
-                for ms, cnt, name in totals]
-        for (_, per, name), (_, seen, _) in zip(rows, totals):
-            if not 0.8 * reps * per <= seen <= reps * per:
-                fail(f"{tag}: {seen:g} events of {name[:40]} in {reps} "
-                     f"calls, {per} a call would be {reps * per}")
+        rows, totals = profiled_calls(torch, fn, reps, launches, tag)
         dev, count = sum(r[0] for r in rows), sum(r[1] for r in rows)
         print(f"[device] {tag}: {dev:.4f} ms in {count} launches ("
               + "; ".join(f"{ms * 1e3:.1f} us x{cnt} {name[:40]}, {seen:g} "
@@ -213,11 +229,42 @@ def phase_device_times(torch, n_clumps, k, kern, reps=10):
                           for (ms, cnt, name), (_, seen, _)
                           in zip(rows, totals))
               + f"), {dev / bnd:.2f}x the bound {bnd:.4f} ms", flush=True)
-        if count != launches:
-            fail(f"{tag}: {count} launches, its design states {launches}")
         kern.setdefault(key, {})
         kern[key]["device_ms"], kern[key]["device_launches"] = dev, count
-    del s, su, c2, tabs
+    kern["C"]["masked"]["device_ms"] = kern.pop("C-mask")["device_ms"]
+    del s, su, c2, tabs, tab_m
+
+
+def profiled_calls(torch, fn, reps, launches, tag, tries=3):
+    """torch.profiler over `reps` calls of fn(): per kernel (ms per call,
+    launches per call, name) and the raw (ms, events, name) rows. A
+    profile must hold, for each kernel, between four fifths and all of
+    reps x its launches per call (the profiler now and then drops one of
+    the first events of a profile, and at times records nothing), and
+    `launches` per call in all, the count the design states. A profile
+    short of that is taken again, up to `tries` in all; each miss is
+    printed, and the run fails if none holds."""
+    for attempt in range(1, tries + 1):
+        totals = device_rows(torch, lambda: [fn() for _ in range(reps)])
+        # per call: each kernel's mean duration times its launches per call
+        rows = [(ms / cnt * round(cnt / reps), round(cnt / reps), name)
+                for ms, cnt, name in totals]
+        if not totals:
+            why = "the profiler recorded no device time"
+        else:
+            short = [f"{seen:g} events of {name[:40]} in {reps} calls, "
+                     f"{per} a call would be {reps * per}"
+                     for (_, per, name), (_, seen, _) in zip(rows, totals)
+                     if not 0.8 * reps * per <= seen <= reps * per]
+            count = sum(r[1] for r in rows)
+            why = ("; ".join(short) if short else
+                   f"{count} launches, its design states {launches}"
+                   if count != launches else None)
+        if why is None:
+            return rows, totals
+        print(f"[device] {tag}: profile {attempt} of {tries}: {why}",
+              flush=True)
+    fail(f"{tag}: {why}")
 
 
 def host_us(torch, fn, reps=200):
@@ -340,6 +387,25 @@ def member_tables(torch, eng, state, params):
             pos, reach, own, fam, bs, nb, max(rows, 1), member=member),
             rows, nb)
     return q, tc, small, tabs
+
+
+def masked_table(torch, state, q, n_clumps, voxel_size):
+    """The SS search's sorted table of the kernel bed with its bottom
+    layer of clumps in family 1, and the family mask with (1, 1)
+    disabled. Returns (table, mask, per-owner bottom-layer flags)."""
+    from dem_engine_tpu_torch.ops import binning
+
+    z = state.owners.vox[:n_clumps, 2].double() * voxel_size
+    bottom = torch.zeros(state.owners.n, dtype=torch.bool, device=DEVICE)
+    bottom[:n_clumps] = z < z.min() + R_SPHERE
+    fam = torch.where(bottom[q["owner"].long()], 1,
+                      q["family"]).to(q["family"].dtype)
+    mask = q["family_mask"].clone()
+    mask[1, 1] = False
+    tab = binning.build_sphere_table(q["pos_cd"], q["reach"], q["owner"],
+                                     fam, q["bin_size"], q["nb_cd"],
+                                     state.spheres.n)
+    return tab, mask, bottom
 
 
 def segsum_inputs(eng, state, params):
@@ -479,6 +545,38 @@ def phase_kernels(torch, n_clumps, k):
         fail("kernel C pair table differs from the plain sweep")
     out["C"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms, bound=bnd,
                     library_ms=None)
+
+    # --- C under a family mask: the bottom layer in family 1, (1, 1) off -
+    n_all = int(kn)
+    own = q["owner"].long()
+    tab_m, mask_m, bottom = masked_table(torch, state, q, n_clumps,
+                                         cfg.voxel_size)
+    ka, kb, kn = sweep.sweep_table_cuda(tab_m, S, mask_m, q["nb_cd"],
+                                        cfg.cap_ss)
+    pa, pb, pn = binning.sweep_table(tab_m, S, mask_m, q["nb_cd"],
+                                     cfg.cap_ss, mpb)
+    same_m = (int(kn) == int(pn) and torch.equal(ka, pa)
+              and torch.equal(kb, pb))
+    live = ka >= 0
+    n11 = int((bottom[own[ka[live].long()]]
+               & bottom[own[kb[live].long()]]).sum())
+    ms_m = cuda_ms(torch, lambda: sweep.sweep_table_cuda(
+        tab_m, S, mask_m, q["nb_cd"], cfg.cap_ss))
+    pms_m = cuda_ms(torch, lambda: binning.sweep_table(
+        tab_m, S, mask_m, q["nb_cd"], cfg.cap_ss, mpb))
+    bnd_m = bound(*bytes_C(tab_m, cfg.cap_ss, int(kn)))
+    print(f"[kernels] C under a family mask ({int(bottom.sum())} bottom-"
+          f"layer owners in family 1, (1, 1) disabled): pairs {int(kn)} "
+          f"(plain {int(pn)}, all-true mask {n_all}), identical={same_m} "
+          f"(pair table and count), (1, 1) pairs {n11}; kernel {ms_m:.3f} "
+          f"ms plain {pms_m:.3f} ms bound {bnd_m[0]:.4f} ms ({bnd_m[1]})",
+          flush=True)
+    if not (same_m and n11 == 0 and int(kn) < n_all):
+        fail("kernel C under the family mask differs from the plain sweep, "
+             "keeps a (1, 1) pair or drops nothing")
+    out["C"]["masked"] = dict(ms=ms_m, plain_ms=pms_m, bound=bnd_m,
+                              pairs=int(kn), pairs_all=n_all)
+    del tab_m, ka, kb, pa, pb
 
     # --- B: fused SS force pass -------------------------------------------
     h = float(params.h)
@@ -897,6 +995,39 @@ def phase_parity(torch, n_clumps):
     if not (all(same) and len(sets["cpu"][1]) > 0):
         fail("the card's poly refresh disagrees with the CPU's")
 
+    # the families scene (rolling resistance off, as the bed above): one
+    # chunk of K = 10 through DEMSolver, card against CPU
+    k_p, res = 10, {}
+    for dev in (DEVICE, "cpu"):
+        s, _, _ = families_solver(n_clumps, k_p, k_p * API_H, crr=0.0,
+                                  device=dev)
+        s.DoDynamics(k_p * API_H)
+        o = s.state.owners
+        res[dev] = dict(
+            pairs=[_pair_set(t) for t in (s.state.ss, s.state.st,
+                                          s.state.sa)],
+            vel=o.vel.cpu().numpy(), omg=o.omg.cpu().numpy(),
+            pos=s.GetOwnerPosition(), fam=s.GetOwnerFamily(),
+            vs=s._voxel_size)
+        del s
+    g, c = res[DEVICE], res["cpu"]
+    same = [a == b for a, b in zip(g["pairs"], c["pairs"])]
+    e_v, e_o = rel_err(c["vel"], g["vel"]), rel_err(c["omg"], g["omg"])
+    e_p = float(np.abs(c["pos"] - g["pos"]).max() / c["vs"])
+    fam_eq = bool(np.array_equal(g["fam"], c["fam"]))
+    print(f"[parity] {n_clumps}-clump families scene (fixed bottom layer, "
+          f"prescribed plate, rule, added acceleration; Crr=0), one chunk "
+          f"of {k_p}: SS pairs {len(g['pairs'][0])} ST pairs "
+          f"{len(g['pairs'][1])} SA pairs {len(g['pairs'][2])}; sets "
+          f"equal (SS, ST, SA): {same}; family-3 owners "
+          f"{int((g['fam'] == 3).sum())}, families equal {fam_eq}; vel err "
+          f"{e_v:.2e} omg err {e_o:.2e} position err {e_p:.2e} voxel (tol "
+          f"2e-4, 2e-4, 1e-3)", flush=True)
+    if not (all(same) and fam_eq and e_v <= 2e-4 and e_o <= 2e-4
+            and e_p <= 1e-3 and len(g["pairs"][1]) > 0
+            and (g["fam"] == 3).any()):
+        fail("the card's families scene disagrees with the CPU's")
+
 
 def physics(torch, state, voxel_size, tag, floor=2 * R_SPHERE):
     """Finite state, no sphere centre within half its radius of the floor
@@ -1247,8 +1378,14 @@ def phase_uniq(torch, n_clumps, k, runs=5):
     dev = {label: [] for label in solvers}
     for _ in range(runs):
         for label, s in solvers.items():
-            rows = device_rows(torch, lambda s=s: s.DoDynamics(k * API_H))
-            if not rows:
+            for attempt in range(3):  # at times a profile records nothing
+                rows = device_rows(torch,
+                                   lambda s=s: s.DoDynamics(k * API_H))
+                if rows:
+                    break
+                print(f"[uniq] {label}: profile {attempt + 1} of 3 recorded "
+                      "no device time", flush=True)
+            else:
                 fail("the profiler recorded no device time for a chunk")
             dev[label].append(sum(r[0] for r in rows))
     mean = {lb: float(np.mean(v)) for lb, v in dev.items()}
@@ -1332,6 +1469,187 @@ def phase_api(torch, n_clumps, k, steps):
     return counts
 
 
+# the families path: the plate sinks at -PLATE_V * (1 - cos(2 pi t / T)),
+# T the phase's run, by PLATE_V * T in all (0.12 R over 300 steps)
+PLATE_V = 0.4
+
+
+def families_solver(n_clumps, k, period, crr=0.01, device=None):
+    """DEMSolver on the API's mono lattice with families, through public
+    calls: the bottom layer in family 1 (SetFamilies) with
+    SetFamilyFixed(1) and DisableContactBetweenFamilies(1, 1); the
+    2*16^2-triangle plate in family 2 laid on the top layer, pressed down
+    at f(t) = -PLATE_V * (1 - cos(2 pi t / period)) (a torch callable)
+    with no spin; ChangeFamilyWhen(0, 3) for the top layer's clumps under
+    the plate's footprint, and an added 9.81 m/s^2 down on family 3.
+    Returns (solver, f as a numpy function, the rule as a numpy function
+    of LBF-relative clump centres)."""
+    import torch
+
+    from dem_engine_tpu_torch import DEMSolver
+    from dem_engine_tpu_torch.cases import R, bed_geometry, plate_mesh
+    from dem_engine_tpu_torch.structs import DEMMeshConnected
+
+    geo = bed_geometry(n_clumps)
+    dims, pos = geo["dims"], geo["pos"]
+    s = DEMSolver(device=device or DEVICE)
+    s.SetVerbosity("WARNING")
+    s.InstructBoxDomainDimension(*dims)
+    mat = s.LoadMaterial({"E": 1e9, "nu": 0.3, "CoR": 0.5, "mu": 0.4,
+                          "Crr": crr})
+    tmpl = s.LoadClumpType(geo["mass"], geo["moi"], [R] * 3, geo["rel"], mat)
+    batch = s.AddClumps(tmpl, pos - dims / 2)
+    z = pos[:, 2]
+    batch.SetFamilies(np.where(z < z.min() + R, 1, 0))
+    s.AddBCPlane([0, 0, -dims[2] / 2 + 2 * R], [0, 0, 1], mat)
+    verts, faces = plate_mesh(POLY["plate_grid"])
+    plate = DEMMeshConnected(vertices=verts, faces=faces)
+    plate.SetFamily(2)
+    top = z + 2 * R  # each clump's highest point
+    layer = top > top.max() - R
+    cx, cy = pos[layer, 0].mean(), pos[layer, 1].mean()
+    plate.SetInitPos(np.asarray([cx, cy, top.max() - 1e-3 * R]) - dims / 2)
+    s.AddWavefrontMeshObject(plate, mat)
+    s.SetFamilyFixed(1)
+    s.DisableContactBetweenFamilies(1, 1)
+    w = 2 * np.pi / period
+    s.SetFamilyPrescribedLinVel(
+        2, 0, 0, lambda t: -PLATE_V * (1 - torch.cos(w * t)))
+    s.SetFamilyPrescribedAngVel(2, 0, 0, 0)
+    z_thr = z.max() - 2 * R  # half a layer below the top layer's centres
+
+    def rule(v, t):
+        return ((v.pos[:, 2] > z_thr) & ((v.pos[:, 0] - cx).abs() < 6 * R)
+                & ((v.pos[:, 1] - cy).abs() < 6 * R))
+
+    def rule_host(p):
+        return ((p[:, 2] > z_thr) & (np.abs(p[:, 0] - cx) < 6 * R)
+                & (np.abs(p[:, 1] - cy) < 6 * R))
+
+    s.ChangeFamilyWhen(0, 3, rule)
+    s.AddFamilyPrescribedAcc(3, 0, 0, -9.81)
+    s.SetInitTimeStep(API_H)
+    s.SetGravitationalAcceleration([0, 0, -9.81])
+    s.SetCDUpdateFreq(k)
+    s.Initialize()
+    return s, (lambda t: -PLATE_V * (1 - np.cos(w * t))), rule_host
+
+
+def owner_families(s, ids):
+    """Families of the owners of sphere ids `ids`."""
+    own = s.state.spheres.owner.cpu().numpy()
+    return s.GetOwnerFamily()[own[np.asarray(ids)]]
+
+
+def phase_families(torch, n_clumps, k, steps):
+    """The families path through DEMSolver (``families_solver``): one
+    step with the rule held to the host's count, the rest of a warm-up
+    chunk, `steps` timed steps (launch counts, memory), K steps under
+    torch.cuda.set_sync_debug_mode("error") after a refresh outside
+    that window; then the fixed layer, the plate's path against the
+    integral of f over the steps' f32 times, the contact query's SS
+    pairs and the physics. Returns the launch counts of the timed
+    steps."""
+    from dem_engine_tpu_torch.solver import run_steps
+
+    h = API_H
+    n_total = 2 * k + steps
+    torch.cuda.empty_cache()
+    s, f, rule_host = families_solver(n_clumps, k, n_total * h)
+    n = s.GetNumClumps()
+    o = s.state.owners
+    fam0 = s.GetOwnerFamily()
+    fixed = fam0 == 1
+    plate = s._meshes[0].owner_id
+    keep = {name: getattr(o, name).cpu().numpy() for name in
+            ("vox", "loc", "quat")}
+    pos0 = s.GetOwnerPosition()
+    # the rule's step: the top layer's clumps under the plate go 0 -> 3
+    want3 = int((rule_host(pos0[:n] - s._lbf) & (fam0[:n] == 0)).sum())
+    s.DoDynamics(h)
+    got3 = int((s.GetOwnerFamily() == 3).sum())
+    s.DoDynamics((k - 1) * h)
+    attempts0 = s.engine.refresh_attempts
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    s.DoDynamics(steps * h)
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    refreshes = s.engine.refresh_attempts - attempts0
+    mem = torch.cuda.max_memory_allocated()
+    # K steps under sync-debug "error"; the refresh reads its overflow
+    # word by design, so it runs before the window
+    params_k = s.params.replace(max_drift=torch.tensor(
+        k, dtype=torch.int32, device=DEVICE))
+    state = s.engine.refresh(s.state, params_k)
+    h32 = float(s.params.h)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = run_steps(state, params_k, s.engine.cfg, k, h=h32)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    s.state = state
+    print(f"[families] {n} clumps ({int(fixed.sum())} fixed in family 1, "
+          f"{got3} moved to family 3 by the rule, host count {want3}), a "
+          f"{s.state.tris.n}-triangle plate in family 2, K={k}, {steps} "
+          f"steps after {k}: {dt * 1e3 / steps:.3f} ms/step, "
+          f"{n * steps / dt:.4g} clump-steps/s; peak memory "
+          f"{mem / 2**30:.2f} GiB; ss.count {int(s.state.ss.count)} "
+          f"st.count {int(s.state.st.count)} sa.count "
+          f"{int(s.state.sa.count)}; {k} steps under sync-debug 'error' "
+          "raised nothing", flush=True)
+    expect = {"A": 3 * steps, "B": steps, "B-extras": 0, "B-ub": 0,
+              "C": refreshes, "D": 0, "lists": 0}
+    print(f"[families] launches {launches}, expected {expect} "
+          f"({refreshes} refresh attempts)", flush=True)
+    if launches != expect or refreshes < steps // k:
+        fail("launch counts do not match the families path")
+    if not got3 == want3 > 0:
+        fail(f"the rule moved {got3} owners to family 3, the host counts "
+             f"{want3}")
+    # the fixed layer: pose bit for bit, no velocity
+    o = s.state.owners
+    same = {name: bool(np.array_equal(getattr(o, name).cpu().numpy()[fixed],
+                                      keep[name][fixed]))
+            for name in keep}
+    still = not (o.vel[torch.from_numpy(fixed).to(DEVICE)].any()
+                 or o.omg[torch.from_numpy(fixed).to(DEVICE)].any())
+    # the plate: dz against the integral of f over the steps' f32 times
+    t32, dz = np.float32(0.0), 0.0
+    for _ in range(n_total):
+        dz += f(np.float64(t32)) * h
+        t32 = np.float32(t32 + np.float32(h))
+    moved = s.GetOwnerPosition()[plate] - pos0[plate]
+    tol = s._voxel_size + n_total * h * PLATE_V * 2 * 1e-6
+    q_same = np.array_equal(s.GetOwnerOriQ()[plate], keep["quat"][plate])
+    info = {b["kind"]: b for b in s.GetContactDetailedInfo()}
+    ss = info.get("SS")
+    n11 = int(((owner_families(s, ss["idA"]) == 1)
+               & (owner_families(s, ss["idB"]) == 1)).sum()) if ss else -1
+    print(f"[families] family 1 after {n_total} steps: vox, loc, quat "
+          f"bit-identical {same}, vel and omg exactly 0: {still}; plate "
+          f"dz {moved[2]:.9e} m against the integral of f "
+          f"{dz:.9e} m (|diff| {abs(moved[2] - dz):.3e}, tol {tol:.3e}: a "
+          f"voxel and f32 evaluation), x, y moved {moved[:2]}, quaternion "
+          f"unchanged {q_same}; SS contacts in the query "
+          f"{len(ss['idA']) if ss else 0}, between two family-1 owners "
+          f"{n11}; kinds {sorted(info)}", flush=True)
+    if not (all(same.values()) and still):
+        fail("a fixed owner moved")
+    if not (abs(moved[2] - dz) <= tol and not moved[:2].any() and q_same
+            and dz < 0):
+        fail("the prescribed plate left its path")
+    if n11 != 0 or "ST" not in info:
+        fail("the contact query holds a (1, 1) pair or no ST block")
+    physics(torch, s.state, s.engine.cfg.voxel_size, "families")
+    del s, state
+    torch.cuda.empty_cache()
+    return launches
+
+
 KERNELS = {
     "A": ("segment_sum", "dem_engine_tpu_torch/csrc/segred.cu",
           "dem_engine_tpu/ops/pallas_segred.py:165"),
@@ -1350,7 +1668,8 @@ KERNELS = {
     "lists": ("unique_fetch_lists", "dem_engine_tpu_torch/csrc/uniq_layout.cu",
               "dem_engine_tpu/ops/forces.py:165 _uniq_layout"),
 }
-PHASES = ("kernels", "parity", "main", "poly", "breakdown", "api", "uniq")
+PHASES = ("kernels", "parity", "main", "poly", "breakdown", "api",
+          "families", "uniq")
 
 
 def main():
@@ -1390,6 +1709,8 @@ def main():
     if "api" in phases:
         api_counts = phase_api(torch, args.clumps, args.k, args.steps)
         phase_api_poly(torch, args.clumps, args.k, args.steps)
+    if "families" in phases:
+        phase_families(torch, args.clumps, args.k, args.steps)
     # torch.profiler only from here on, so that no timed run follows a
     # profile in its process; the breakdowns settle their beds anew, so
     # no timed run shares the card's memory with them either
@@ -1420,6 +1741,14 @@ def main():
         s.DoDynamics(args.k * API_H)
         phase_breakdown(torch, s.engine, s.state, s.params, args.k,
                         tag="api breakdown, poly")
+        del s
+    if "breakdown" in phases and "families" in phases:
+        torch.cuda.empty_cache()
+        s, _, _ = families_solver(args.clumps, args.k,
+                                  (2 * args.k + args.steps) * API_H)
+        s.DoDynamics(args.k * API_H)
+        phase_breakdown(torch, s.engine, s.state, s.params, args.k,
+                        tag="families breakdown")
         del s
     print(card)
     if kern and main_counts and api_counts:

@@ -3,7 +3,8 @@ kernels for NVIDIA Hopper.
 
 A port of ``dem_engine_tpu`` (JAX), which stays the reference. Users
 drive it through ``DEMSolver`` (clumps of spheres on analytical
-boundaries, the built-in Hertz models, contact detection every K steps),
+boundaries and triangle meshes, the built-in Hertz models, family
+prescriptions and rules, contact detection every K steps),
 which runs ``solver.Engine.advance``. On a CUDA device its kernels
 (``csrc/``) do the SS force pass (with its unique-fetch and query
 variants), the owner wrench sums and the SS pair search; on the CPU
@@ -15,6 +16,8 @@ from .api import DEMSolver, DEMTracker  # noqa: F401
 from .cases import build_case  # noqa: F401
 from .defines import TimeIntegrator, Verbosity  # noqa: F401
 from .models import (  # noqa: F401
+    FamilyChange,
+    FamilyPrescription,
     HertzianForceModel,
     HertzianFrictionlessForceModel,
 )
@@ -25,6 +28,7 @@ from .structs import (  # noqa: F401
     DEMClumpTemplate,
     DEMExternObj,
     DEMMaterial,
+    DEMMeshConnected,
 )
 from .utils.samplers import (  # noqa: F401
     DEMBoxGridSampler,

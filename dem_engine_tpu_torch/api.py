@@ -4,9 +4,16 @@ The JAX package's ``DEMSolver``/``DEMTracker`` method names and
 behaviour, for the subset this package runs: clumps of spheres,
 analytical boundaries and triangle meshes (deformable through their
 trackers), the two-class CD of polydisperse beds, the built-in Hertz
-models, a fixed CD cadence. Prescriptions, family-change rules,
-persistency, checkpoints, inspectors and contact-file output are not
-here yet.
+models, a fixed CD cadence, family prescriptions (fixed, prescribed and
+corrected families, added accelerations), family-change rules, the
+family contact masks and the owner-state setters. Persistency,
+checkpoints, inspectors and contact-file output are not here yet.
+
+A prescription or rule given as a callable receives the step's start
+time `t` as a 0-d float32 tensor on the solver's device and must
+compute with torch operations on it (``torch.sin(t)``, not
+``jnp.sin``), returning tensors on that device
+(``models.prescriptions``).
 
 Typical use:
 
@@ -35,6 +42,7 @@ and unique fetch is off, as the JAX package runs on its CPU.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -59,9 +67,17 @@ from .initializer import (
     resolve_device,
 )
 from .models import HertzianForceModel
+from .models.prescriptions import (
+    Components,
+    Const,
+    FamilyChange,
+    FamilyPrescription,
+)
+from .models.prescriptions import fixed as _fixed_prescription
+from .models.prescriptions import merge as _merge_prescription
 from .ops import forces, quat
 from .ops.fused_force import fused_step_ss
-from .ops.voxel import choose_voxel_size, decode_host
+from .ops.voxel import choose_voxel_size, decode_host, encode_host
 from .solver import Engine, sphere_world_pos
 from .state import SolverConfig
 from .structs import (
@@ -110,6 +126,57 @@ class DEMTracker:
 
     def GetOwnerID(self, offset: int = 0):
         return self._oid(offset)
+
+    def GetFamily(self, offset: int = 0):
+        return int(self._s.state.owners.family[self._oid(offset)])
+
+    def GetFamilies(self):
+        return self._s.GetOwnerFamily(self.owner_ids)
+
+    # --- writes: between stepping calls, on copies of the state tensors --
+    def _set_owner_field(self, field, offset, value):
+        s = self._s
+        owners = s.state.owners
+        arr = getattr(owners, field).clone()
+        arr[self._oid(offset)] = torch.as_tensor(
+            np.asarray(value, np.float32), device=arr.device)
+        s.state = s.state.replace(owners=owners.replace(**{field: arr}))
+
+    def SetPos(self, pos, offset: int = 0):
+        s = self._s
+        o = self._oid(offset)
+        vox, loc = encode_host(np.asarray(pos, np.float64) - s._lbf,
+                               s._voxel_size)
+        owners = s.state.owners
+        new_vox, new_loc = owners.vox.clone(), owners.loc.clone()
+        new_vox[o] = torch.as_tensor(vox, device=new_vox.device)
+        new_loc[o] = torch.as_tensor(loc, device=new_loc.device)
+        s.state = s.state.replace(owners=owners.replace(vox=new_vox,
+                                                        loc=new_loc))
+
+    def SetVel(self, v, offset: int = 0):
+        self._set_owner_field("vel", offset, v)
+
+    def SetAngVel(self, w, offset: int = 0):
+        """Body frame, like AngVelLocal."""
+        self._set_owner_field("omg", offset, w)
+
+    def SetOriQ(self, q, offset: int = 0):
+        self._set_owner_field("quat", offset, q)
+
+    def SetFamily(self, fam: int, offset: Optional[int] = None):
+        """Every tracked owner's family, or the one at `offset`."""
+        ids = self.owner_ids if offset is None else [self._oid(offset)]
+        self._s.SetOwnerFamily(ids, fam)
+
+    def AddAcc(self, acc, offset: int = 0):
+        """Extra acceleration applied every following step (it replaces
+        the owner's earlier one)."""
+        self._set_owner_field("ext_acc", offset, acc)
+
+    def AddAngAcc(self, aacc, offset: int = 0):
+        """Extra body-frame angular acceleration, as AddAcc."""
+        self._set_owner_field("ext_ang_acc", offset, aacc)
 
     def GetContactForces(self, offset: int = 0):
         """All contact (point, force) pairs involving this owner, in the
@@ -196,7 +263,12 @@ class DEMSolver:
         self._meshes: List[DEMMeshConnected] = []
         self._cd_two_class = None  # None: the radius rule at Initialize
         self._cls_thr = 0.0
-        self._max_tri_span = None
+        self._init_max_tri_span = None
+        # families
+        self._prescriptions: Dict[int, FamilyPrescription] = {}
+        self._axis_presc: Dict[tuple, list] = {}
+        self._family_changes: List[FamilyChange] = []
+        self._next_step_acc: list = []
         # live (post-Initialize)
         self.state = None
         self.params = None
@@ -245,6 +317,13 @@ class DEMSolver:
 
     UpdateStepSize = SetTimeStepSize
 
+    def SetIntegrator(self, integ):
+        """The velocity pass-on policy, a TimeIntegrator or its name. It
+        is read at Initialize."""
+        if isinstance(integ, str):
+            integ = TimeIntegrator(integ.lower())
+        self._integrator = integ
+
     def SetCDUpdateFreq(self, freq: int):
         self._update_freq = int(freq)
         if self._initialized:
@@ -266,9 +345,9 @@ class DEMSolver:
         self._cd_two_class = bool(flag)
 
     def SetMaxTriangleInBin(self, n: int):
-        """The ST sweep's first span: n // 8 bins per axis (at least 2),
-        doubled on overflow up to 32."""
-        self._max_tri_span = max(2, int(n) // 8)
+        """Stored only, as the JAX package does: the ST sweep's span
+        starts at 4 bins per axis and doubles on overflow up to 32."""
+        self._init_max_tri_span = max(2, int(n) // 8)
 
     def SetExpandSafetyMultiplier(self, m: float):
         self._expand_multi = float(m)
@@ -372,6 +451,223 @@ class DEMSolver:
             mesh.material = material
         self._meshes.append(mesh)
         return mesh
+
+    # ------------------------------------------------------------------
+    # families
+    # ------------------------------------------------------------------
+    # Prescriptions and rules set after Initialize take effect at the
+    # next step, contact masks, margins and materials at the next refresh.
+    # A component given as a callable takes the step's start time as a
+    # 0-d tensor and computes with torch (module docstring).
+    def _merge_presc(self, p: FamilyPrescription):
+        old = self._prescriptions.get(p.family)
+        self._prescriptions[p.family] = (
+            _merge_prescription(old, p) if old else p)
+        if self._initialized:
+            self.engine.cfg = dataclasses.replace(
+                self.engine.cfg,
+                prescriptions=tuple(self._prescriptions.values()))
+
+    def SetFamilyFixed(self, family: int):
+        self._merge_presc(_fixed_prescription(family))
+
+    def _prescribe(self, family, channel, comps, dictate=True):
+        """A masked vec3 channel from per-component numbers, callables or
+        None (unprescribed); dictate=False takes its soft form. Position
+        components are user-frame, stored relative to the domain's lower
+        corner."""
+        name = channel if dictate else channel + "_soft"
+        offset = self._lbf if channel == "lin_pos" else (0.0, 0.0, 0.0)
+        self._merge_presc(FamilyPrescription(family=family, **{
+            name: Components(comps, offset),
+            name + "_mask": tuple(c is not None for c in comps)}))
+
+    def SetFamilyPrescribedLinVel(self, family: int, vx=None, vy=None,
+                                  vz=None, dictate: bool = True):
+        """Components may be numbers or callables of time; None leaves the
+        component unprescribed. dictate=False assigns the components each
+        step and lets the physics integrate on top."""
+        self._prescribe(family, "lin_vel", (vx, vy, vz), dictate)
+
+    def SetFamilyPrescribedAngVel(self, family: int, wx=None, wy=None,
+                                  wz=None, dictate: bool = True):
+        """Body frame; as SetFamilyPrescribedLinVel."""
+        self._prescribe(family, "rot_vel", (wx, wy, wz), dictate)
+
+    def SetFamilyPrescribedPosition(self, family: int, x=None, y=None,
+                                    z=None):
+        """User-frame position components."""
+        self._prescribe(family, "lin_pos", (x, y, z))
+
+    def SetFamilyPrescribedQuaternion(self, family: int, q_fn):
+        q = q_fn if callable(q_fn) else Const(q_fn)
+        self._merge_presc(FamilyPrescription(family=family, quat=q))
+
+    # per-axis setters: each axis call accumulates into one 3-component
+    # prescription of its channel
+    def _axis_prescribe(self, family, channel, axis, expr, dictate=True):
+        key = (int(family), channel, bool(dictate))
+        comps = self._axis_presc.setdefault(key, [None, None, None])
+        comps[axis] = expr
+        self._prescribe(family, channel, tuple(comps), dictate)
+
+    def SetFamilyPrescribedLinVelX(self, family, vx, dictate: bool = True):
+        self._axis_prescribe(family, "lin_vel", 0, vx, dictate)
+
+    def SetFamilyPrescribedLinVelY(self, family, vy, dictate: bool = True):
+        self._axis_prescribe(family, "lin_vel", 1, vy, dictate)
+
+    def SetFamilyPrescribedLinVelZ(self, family, vz, dictate: bool = True):
+        self._axis_prescribe(family, "lin_vel", 2, vz, dictate)
+
+    def SetFamilyPrescribedAngVelX(self, family, wx, dictate: bool = True):
+        self._axis_prescribe(family, "rot_vel", 0, wx, dictate)
+
+    def SetFamilyPrescribedAngVelY(self, family, wy, dictate: bool = True):
+        self._axis_prescribe(family, "rot_vel", 1, wy, dictate)
+
+    def SetFamilyPrescribedAngVelZ(self, family, wz, dictate: bool = True):
+        self._axis_prescribe(family, "rot_vel", 2, wz, dictate)
+
+    def SetFamilyPrescribedPositionX(self, family, x):
+        self._axis_prescribe(family, "lin_pos", 0, x)
+
+    def SetFamilyPrescribedPositionY(self, family, y):
+        self._axis_prescribe(family, "lin_pos", 1, y)
+
+    def SetFamilyPrescribedPositionZ(self, family, z):
+        self._axis_prescribe(family, "lin_pos", 2, z)
+
+    def CorrectFamilyLinVel(self, family: int, vx=0.0, vy=0.0, vz=0.0):
+        """Velocity correction: assigned each step, with the physics
+        still integrating on top."""
+        self._merge_presc(FamilyPrescription(
+            family=family, lin_vel_soft=Components((vx, vy, vz))))
+
+    def CorrectFamilyAngVel(self, family: int, wx=0.0, wy=0.0, wz=0.0):
+        """Angular-velocity correction, body frame."""
+        self._merge_presc(FamilyPrescription(
+            family=family, rot_vel_soft=Components((wx, wy, wz))))
+
+    def CorrectFamilyPosition(self, family: int, x=0.0, y=0.0, z=0.0):
+        """Position correction: the base position is re-seated to the
+        given user-frame value before the step's displacement."""
+        self._merge_presc(FamilyPrescription(
+            family=family,
+            lin_pos_soft=Components((x, y, z), offset=self._lbf)))
+
+    def CorrectFamilyQuaternion(self, family: int, q_fn):
+        """Orientation correction: the base quaternion is re-seated
+        before the step's rotation is integrated."""
+        q = q_fn if callable(q_fn) else Const(q_fn)
+        self._merge_presc(FamilyPrescription(family=family, quat_soft=q))
+
+    def AddFamilyPrescribedAcc(self, family: int, ax=0.0, ay=0.0, az=0.0):
+        self._merge_presc(FamilyPrescription(
+            family=family, acc=Components((ax, ay, az))))
+
+    def AddFamilyPrescribedAngAcc(self, family: int, ax=0.0, ay=0.0, az=0.0):
+        """Body frame."""
+        self._merge_presc(FamilyPrescription(
+            family=family, ang_acc=Components((ax, ay, az))))
+
+    def _add_next_step(self, field, owner_ids, val):
+        if not self._initialized:
+            raise RuntimeError("call Initialize() first")
+        ids = np.asarray(owner_ids, np.int64).reshape(-1)
+        val = np.asarray(val, np.float32)
+        owners = self.state.owners
+        arr = getattr(owners, field).index_put(
+            (torch.as_tensor(ids, device=self.device),),
+            torch.as_tensor(np.broadcast_to(val, (len(ids), 3)).copy(),
+                            device=self.device),
+            accumulate=True)
+        self.state = self.state.replace(owners=owners.replace(**{field: arr}))
+        return ids, val
+
+    def AddOwnerNextStepAcc(self, owner_ids, acc):
+        """Extra linear acceleration of the named owners for the NEXT
+        step only: cleared after the next stepping call's first step."""
+        ids, val = self._add_next_step("ext_acc", owner_ids, acc)
+        self._next_step_acc.append(("ext_acc", ids, val))
+
+    def AddOwnerNextStepAngAcc(self, owner_ids, ang_acc):
+        """Extra body-frame angular acceleration for the next step only."""
+        ids, val = self._add_next_step("ext_ang_acc", owner_ids, ang_acc)
+        self._next_step_acc.append(("ext_ang_acc", ids, val))
+
+    def _clear_next_step_acc(self):
+        pending, self._next_step_acc = self._next_step_acc, []
+        for field, ids, val in pending:
+            self._add_next_step(field, ids, -val)
+
+    def ChangeClumpFamily(self, to_family: int, owner_ids=None, IDs=None):
+        """Re-family specific clump owners."""
+        if not self._initialized:
+            raise RuntimeError("call Initialize() first")
+        self.SetOwnerFamily(owner_ids if owner_ids is not None else IDs,
+                            to_family)
+
+    def SetOwnerFamily(self, ids, family: int):
+        owners = self.state.owners
+        fam = owners.family.clone()
+        fam[torch.as_tensor(np.asarray(ids, np.int64).reshape(-1),
+                            device=self.device)] = int(family)
+        self.state = self.state.replace(owners=owners.replace(family=fam))
+
+    def ChangeFamily(self, from_family: int, to_family: int):
+        if not self._initialized:
+            raise RuntimeError("ChangeFamily needs an initialized solver")
+        owners = self.state.owners
+        fam = torch.where(owners.family == from_family, to_family,
+                          owners.family)
+        self.state = self.state.replace(owners=owners.replace(family=fam))
+
+    def ChangeFamilyWhen(self, from_family: int, to_family: int, condition):
+        """condition: (OwnerView, t) -> bool[N] tensor, evaluated every
+        step after the integrator. view.pos is LBF-relative (the internal
+        frame): add solver._lbf to user-frame thresholds. Rules do not
+        cascade within a step."""
+        self._family_changes.append(
+            FamilyChange(from_family, to_family, condition))
+        if self._initialized:
+            self.engine.cfg = dataclasses.replace(
+                self.engine.cfg, family_changes=tuple(self._family_changes))
+
+    def _mask_changed(self):
+        # kernel C and the SA/ST searches test the mask at every refresh
+        if self._initialized:
+            self._rebuild_params()
+
+    def DisableContactBetweenFamilies(self, famA: int, famB: int):
+        self._family_mask[famA, famB] = False
+        self._family_mask[famB, famA] = False
+        self._mask_changed()
+
+    def EnableContactBetweenFamilies(self, famA: int, famB: int):
+        self._family_mask[famA, famB] = True
+        self._family_mask[famB, famA] = True
+        self._mask_changed()
+
+    def DisableFamilyContact(self, fam: int):
+        self._family_mask[fam, :] = False
+        self._family_mask[:, fam] = False
+        self._mask_changed()
+
+    def SetFamilyExtraMargin(self, family: int, margin: float):
+        """Extra CD margin of a family's geometry."""
+        self._family_extra_margin[family] = margin
+        if self._initialized:
+            self._rebuild_params()
+
+    def SetFamilyClumpMaterial(self, family: int, material):
+        """The material of every sphere whose owner is in `family`; the
+        next refresh premixes it into the contact tables."""
+        st = self.state
+        mid = material.id if hasattr(material, "id") else int(material)
+        fam = st.owners.family[st.spheres.owner.long()]
+        self.state = st.replace(spheres=st.spheres.replace(
+            mat=torch.where(fam == family, mid, st.spheres.mat)))
 
     # ------------------------------------------------------------------
     # trackers
@@ -574,7 +870,8 @@ class DEMSolver:
             cap_ss=cap_ss,
             cap_st=cap_st,
             cap_sa=cap_sa,
-            max_tri_span=self._max_tri_span or 4,
+            prescriptions=tuple(self._prescriptions.values()),
+            family_changes=tuple(self._family_changes),
             cd_two_class=two_class,
             uniq_cap=self._uniq_cap if on_card else 0,
         )
@@ -664,8 +961,16 @@ class DEMSolver:
         if not self._initialized:
             raise RuntimeError("call Initialize() first")
         n_steps = int(round(duration / self._h))
+        if self._next_step_acc and n_steps > 1:
+            # one-shot next-step accelerations apply to the first step only
+            self.state = self.engine.advance(self.state, self.params, 1,
+                                             self._update_freq)
+            self._clear_next_step_acc()
+            n_steps -= 1
         self.state = self.engine.advance(self.state, self.params, n_steps,
                                          self._update_freq)
+        if self._next_step_acc:
+            self._clear_next_step_acc()
         self._sync()
         self._check_lost_contacts()
 
@@ -684,6 +989,8 @@ class DEMSolver:
     def DoStepDynamics(self):
         self.state = self.engine.advance(self.state, self.params, 1,
                                          self._update_freq)
+        if self._next_step_acc:
+            self._clear_next_step_acc()
 
     # ------------------------------------------------------------------
     # getters

@@ -5,7 +5,9 @@ the caller has already turned into numpy arrays (for example with
 ``jax.tree_util.tree_map(np.asarray, state)``), or nested mappings with
 the same field names, and build the port's objects on `device`. Field
 names and dtypes are kept: f32 for reals, i32 for ids and voxels, bool
-for the family masks. This module imports nothing of JAX.
+for the family masks. This module imports nothing of JAX: prescriptions
+and family-change rules, which hold callables, are not carried across
+but checked against the port's own (``config_from_reference``).
 
 Layouts differ in two places: the port's SS table always carries the
 fused-pass record ``fstat_a`` and no wide ``statics``, and of the JAX
@@ -26,6 +28,7 @@ import torch
 
 from .defines import F, I, TimeIntegrator
 from .models import HertzianForceModel, HertzianFrictionlessForceModel
+from .models.prescriptions import CHANNELS
 from .ops.forces import block_starts
 from .state import (
     FSTAT_W,
@@ -177,21 +180,69 @@ _MODELS = {
 }
 
 
-def config_from_reference(cfg) -> SolverConfig:
+_CHANNELS = tuple(ch for ch, _, _ in CHANNELS)
+_MASKS = tuple(m for _, _, m in CHANNELS if m)
+
+
+def _check_prescriptions(ref, port):
+    """The port's prescriptions hold the JAX config's families, with
+    the same channels set and the same component masks."""
+    def layout(presc):
+        out = {}
+        for p in presc:
+            f = int(_get(p, "family"))
+            if f in out:
+                raise ValueError(f"family {f} is prescribed twice")
+            out[f] = (tuple(_get(p, c) is not None for c in _CHANNELS),
+                      tuple(tuple(bool(x) for x in _get(p, m))
+                            for m in _MASKS))
+        return out
+
+    want, got = layout(ref), layout(port)
+    if want != got:
+        raise ValueError(
+            "the prescriptions differ from the JAX config's: families "
+            f"{sorted(want)} against {sorted(got)}, or their channels or "
+            "masks")
+
+
+def _check_family_changes(ref, port):
+    want = [(int(_get(r, "from_family")), int(_get(r, "to_family")))
+            for r in ref]
+    got = [(int(r.from_family), int(r.to_family)) for r in port]
+    if want != got:
+        raise ValueError(f"the family changes {got} differ from the JAX "
+                         f"config's {want}")
+
+
+def config_from_reference(cfg, prescriptions=None,
+                          family_changes=None) -> SolverConfig:
     """The port's SolverConfig from a JAX ``SolverConfig``: voxel size,
     integrator, built-in force model, capacities, the ST sweep's scan
     widths and the two-class CD settings. Options of the JAX package that
     select TPU kernels or layouts have no counterpart (the port picks
-    kernels by device); settings the port does not run yet raise."""
+    kernels by device); settings the port does not run yet raise.
+
+    Prescriptions and family-change rules hold callables of one
+    framework and cannot be carried across: where the JAX config has
+    them, pass the port's own (``models.prescriptions``) as
+    `prescriptions` and `family_changes`; their families, channels and
+    masks must match the JAX config's."""
     model = _MODELS.get(_get(cfg, "force_model").fused_variant)
     if model is None:
         raise NotImplementedError(
             "only the built-in Hertz force models are ported")
     if _get(cfg, "use_persistency"):
         raise NotImplementedError("persistency is not ported yet")
-    if _get(cfg, "prescriptions") or _get(cfg, "family_changes"):
-        raise NotImplementedError(
-            "prescriptions and family changes are not ported yet")
+    for name, given, check in (
+            ("prescriptions", prescriptions, _check_prescriptions),
+            ("family_changes", family_changes, _check_family_changes)):
+        ref = tuple(_get(cfg, name))
+        if ref and given is None:
+            raise ValueError(
+                f"the JAX config has {name}, whose callables cannot be "
+                f"carried across: pass the port's own as `{name}=`")
+        check(ref, tuple(given or ()))
     return SolverConfig(
         voxel_size=float(_get(cfg, "voxel_size")),
         integrator=TimeIntegrator(_get(cfg, "integrator").value),
@@ -208,4 +259,6 @@ def config_from_reference(cfg) -> SolverConfig:
         # the JAX package builds unique-fetch layouts on fused tables only
         uniq_cap=(int(_get(cfg, "uniq_cap"))
                   if _get(cfg, "use_fused_force") else 0),
+        prescriptions=tuple(prescriptions or ()),
+        family_changes=tuple(family_changes or ()),
     )

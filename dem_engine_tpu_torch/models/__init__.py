@@ -3,3 +3,4 @@ from .hertz import (  # noqa: F401
     HertzianForceModel,
     HertzianFrictionlessForceModel,
 )
+from .prescriptions import FamilyChange, FamilyPrescription, fixed  # noqa: F401

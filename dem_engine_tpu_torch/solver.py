@@ -7,8 +7,10 @@ by the two-stage ST sweep over the same sorted spheres, sphere-floor
 pairs by brute force; history carried, tables sorted and denormalized.
 ``dynamics_step`` then runs K times against the frozen tables (the fused
 SS pass, kernel B, with its wrench sums, kernel A; the ST and SA tables
-through ``contact_pass`` and kernel A; integration). Contact margins
-sized by K·h·velocity keep the stale table exact.
+through ``contact_pass`` and kernel A; integration under the family
+prescriptions, evaluated at the step's start time, then the
+family-change rules). Contact margins sized by K·h·velocity keep the
+stale table exact.
 
 Host protocol: ``Engine.refresh`` reads one overflow word per refresh.
 On a capacity overflow it grows the table (or the unique-fetch lists)
@@ -25,7 +27,7 @@ import dataclasses
 import torch
 
 from .defines import F, I
-from .models.prescriptions import PrescriptionTables
+from .models.prescriptions import PrescriptionTables, static_tables
 from .ops import binning, forces, history, integrator, narrowphase, quat
 from .ops import sweep, voxel
 from .initializer import ss_uniq_rows
@@ -359,13 +361,15 @@ def refresh_contacts(state: SimState, params: RuntimeParams,
 def dynamics_step(state: SimState, params: RuntimeParams,
                   cfg: SolverConfig, h: float | None = None,
                   tables: PrescriptionTables | None = None) -> SimState:
-    """One step. `h` is params.h as a host float and `tables` the
-    prescription tables; run_steps passes both once per chunk so a step
-    reads nothing back from the device."""
+    """One step. `h` is params.h as a host float and `tables` the static
+    prescription tables (``static_tables``); run_steps passes both once
+    per chunk so a step reads nothing back from the device. The tables
+    are evaluated at the step's start time, the family-change rules
+    applied to the owners that come out of the integrator."""
     if h is None:
         h = float(params.h)
     if tables is None:
-        tables = PrescriptionTables(cfg.prescriptions, state.device)
+        tables = static_tables(cfg.prescriptions, state.device)
     owners = state.owners
     model = cfg.force_model
     n = owners.n
@@ -397,8 +401,8 @@ def dynamics_step(state: SimState, params: RuntimeParams,
     forces.reduce_wrench_segment(n, passes, out=acc)
 
     owners = integrator.integrate_owners(
-        owners, f_acc, t_acc, params, tables, cfg.voxel_size,
-        cfg.integrator, state.time)
+        owners, f_acc, t_acc, params, tables.at(state.time),
+        cfg.voxel_size, cfg.integrator, state.time)
     owners = integrator.apply_family_changes(
         owners, cfg.family_changes, cfg.voxel_size, state.time)
     return state.replace(owners=owners, ss=ss, st=wide["st"],
@@ -407,9 +411,12 @@ def dynamics_step(state: SimState, params: RuntimeParams,
 
 
 def run_steps(state: SimState, params: RuntimeParams, cfg: SolverConfig,
-              n_steps: int) -> SimState:
-    h = float(params.h)
-    tables = PrescriptionTables(cfg.prescriptions, state.device)
+              n_steps: int, h: float | None = None) -> SimState:
+    """`n_steps` steps. `h` is float(params.h), read here unless given:
+    with it given, the steps read nothing back from the device."""
+    if h is None:
+        h = float(params.h)
+    tables = static_tables(cfg.prescriptions, state.device)
     for _ in range(n_steps):
         state = dynamics_step(state, params, cfg, h, tables)
     return state

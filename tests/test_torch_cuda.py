@@ -571,3 +571,56 @@ def test_poly_engine_matches_cpu():
     assert gs == cs and len(cs[1]) > 0
     assert _rel(c.owners.vel, g.owners.vel.cpu()) <= 2e-4
     assert _rel(c.owners.omg, g.owners.omg.cpu()) <= 2e-4
+
+
+def test_families_solver_matches_cpu():
+    """Family prescriptions and a rule through the public DEMSolver on
+    the card against the CPU: 64 spheres on a floor, the bottom layer
+    fixed with its (1, 1) contacts off, the top layer driven down by a
+    velocity of time, a rule moving the middle layers' spheres past
+    x = 0 into a family with an added acceleration; 10 steps, families
+    equal, velocities within 2e-4 (rolling resistance off). On the card
+    10 more steps run under torch.cuda.set_sync_debug_mode("error"), the
+    refresh before them: a step reads nothing back."""
+    _need_card()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = DEMSolver(device=dev)
+        s.SetVerbosity("QUIET")
+        s.InstructBoxDomainDimension(0.1, 0.1, 0.1)
+        mat = s.LoadMaterial({"E": 1e7, "nu": 0.3, "CoR": 0.5, "mu": 0.4,
+                              "Crr": 0.0})
+        t = s.LoadSphereType(1e-3, 0.005, mat)
+        g = np.stack(np.meshgrid(*[np.arange(4)] * 3, indexing="ij"),
+                     -1).reshape(-1, 3)
+        b = s.AddClumps(t, g * 0.0099 - 0.02)
+        b.SetFamilies(np.where(g[:, 2] == 0, 1, np.where(g[:, 2] == 3, 2,
+                                                         0)))
+        s.AddBCPlane([0, 0, -0.026], [0, 0, 1], mat)
+        s.SetFamilyFixed(1)
+        s.DisableContactBetweenFamilies(1, 1)
+        s.SetFamilyPrescribedLinVel(2, 0, 0,
+                                    lambda t: -0.05 * torch.cos(2e3 * t))
+        s.ChangeFamilyWhen(0, 3, lambda v, t: v.pos[:, 0] > 0.05)
+        s.AddFamilyPrescribedAcc(3, 0, 0, -9.81)
+        s.SetInitTimeStep(1e-5)
+        s.SetGravitationalAcceleration([0, 0, -9.81])
+        s.SetCDUpdateFreq(10)
+        s.Initialize()
+        s.DoDynamics(1e-4)
+        out[dev] = (s.GetOwnerVelocity(), s.GetOwnerFamily())
+        if dev == "cuda":
+            pk = s.params.replace(max_drift=torch.tensor(
+                10, dtype=torch.int32, device=dev))
+            st, h = s.engine.refresh(s.state, pk), float(s.params.h)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                st = run_steps(st, pk, s.engine.cfg, 10, h=h)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert torch.isfinite(st.owners.vel).all()
+    (vg, fg), (vc, fc) = out["cuda"], out["cpu"]
+    np.testing.assert_array_equal(fg, fc)
+    assert (fc == 3).any() and not vc[fc == 1].any()
+    assert np.abs(vg - vc).max() <= 2e-4 * np.abs(vc).max()
