@@ -58,23 +58,42 @@ Phases, each printing its own numbers; any failure exits nonzero:
                torch.cuda.set_sync_debug_mode("error"); the fixed layer
                bit for bit, the plate's path against the integral of its
                velocity, no (1, 1) pair in the contact query, physics
-  8 device     torch.profiler, only after every timed run: the device time
+  8 output     the read side of DEMSolver on the API's mono lattice (a
+               named template), after one chunk: every inspector quantity
+               with no region, a BoxRegion, a SphereRegion and the box as
+               a host callable, against a float64 numpy reduction of the
+               copied state, with the host time of a GetValue;
+               WriteClumpFile in CSV and binary, read back with the
+               ReadClump*FromCsv readers and np.load, equal to the
+               getters; WriteContactFile in CSV and binary (one B-extras
+               launch), its rows against the tables and
+               ReadContactPairsFromCsv, its time split into the force pass,
+               the device-side selection with the copies, and the
+               formatting, and a force_thres run against |f| > thres;
+               ProfileStageTimings(reps=5) with the state held bit for
+               bit; a DoDynamics of the timed steps with each K-step
+               window under torch.cuda.set_sync_debug_mode("error") and
+               ShowTimingStats' counts
+  9 device     torch.profiler, only after every timed run: the device time
                and launches per call of the segment sums (A: a step's two
                pair calls, D), of one C search (and one under the family
                mask), of the poly refresh's two
                C searches, of B on the main path's table, and of the
                lists launch, B-ub and B on the API's table, against their
                bounds
-  9 uniq       the unique-fetch decision: the device time of one
+  10 uniq      the unique-fetch decision: the device time of one
                DoDynamics chunk (refresh + K steps) with unique fetch at
                512 and off, five alternating rounds (torch.profiler)
-  10 breakdown for the main path, the poly path, each API path (the
+  11 breakdown for the main path, the poly path, each API path (the
                poly one too) and the families path, on a bed settled
                anew, one chunk: refresh
                and steps timed apart, then the device time and launches
                of a step, and of one refresh, by operation; for the poly
                path also the refresh's device time split into C x2, the
-               cross search, the ST search and the rest
+               cross search, the ST search and the rest; last, for the
+               output phase, the device time of B-extras in a query on
+               the API's table and the launches of a step of DoDynamics'
+               K-step window with the timers on
 With every phase run, the line before the last holds the kernels' JSON
 record and the one before it the card's name and power limit; the last
 line is the JSON verdict.
@@ -1248,9 +1267,10 @@ def api_table(n_clumps, k):
     return s
 
 
-def api_solver(n_clumps, k, uniq):
+def api_solver(n_clumps, k, uniq, name=None):
     """DEMSolver on the bench bed through its public calls: the clump
-    template and lattice of cases.build_case, the floor by AddBCPlane."""
+    template (named `name`, if given) and lattice of cases.build_case,
+    the floor by AddBCPlane."""
     from dem_engine_tpu_torch import DEMSolver
     from dem_engine_tpu_torch.cases import R, bed_geometry
 
@@ -1262,6 +1282,8 @@ def api_solver(n_clumps, k, uniq):
     mat = s.LoadMaterial({"E": 1e9, "nu": 0.3, "CoR": 0.5, "mu": 0.4,
                           "Crr": 0.01})
     tmpl = s.LoadClumpType(geo["mass"], geo["moi"], [R] * 3, geo["rel"], mat)
+    if name is not None:
+        tmpl.AssignName(name)
     s.AddClumps(tmpl, geo["pos"] - dims / 2)
     s.AddBCPlane([0, 0, -dims[2] / 2 + 2 * R], [0, 0, 1], mat)
     s.SetInitTimeStep(5e-6)
@@ -1650,6 +1672,404 @@ def phase_families(torch, n_clumps, k, steps):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the output path: inspectors, clump and contact files, stage timing
+# ---------------------------------------------------------------------------
+
+QUANTITIES = tuple(f"clump_{m}_{a}" for m in ("max", "min") for a in "xyz") + (
+    "clump_max_absv", "clump_absv", "clump_kinetic_energy", "clump_mass",
+    "clump_volume", "clump_count")
+
+
+def gap_cut(vals, frac, window=0.1):
+    """A cut between two of `vals` near their `frac` quantile: the middle
+    of the widest gap between sorted values within `window` of the count
+    of it, so that no value sits near the cut (a bed's contact forces
+    crowd closer than an f32 ulp around their median, so a narrow window
+    can hold gaps of one ulp)."""
+    v = np.sort(np.asarray(vals, np.float64))
+    i = int(frac * (len(v) - 1))
+    w = max(int(window * len(v)), 1)
+    lo, hi = max(i - w, 0), min(i + w + 1, len(v))
+    g = lo + int(np.argmax(np.diff(v[lo:hi])))
+    return 0.5 * (v[g] + v[g + 1])
+
+
+def state_tensors(x, path="state"):
+    """Every tensor of a (nested) state dataclass, by path."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        yield path, x
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            yield from state_tensors(getattr(x, f.name), f"{path}.{f.name}")
+    elif isinstance(x, dict):
+        for key, v in x.items():
+            yield from state_tensors(v, f"{path}[{key}]")
+
+
+def inspect_ref(s, q, mask, host):
+    """An inspector quantity in float64 numpy over the copied state
+    `host`, the spheres in `mask`."""
+    from dem_engine_tpu_torch.defines import RESERVED_FAMILY
+
+    ax = {"x": 0, "y": 1, "z": 2}.get(q[-1])
+    if q.startswith("clump_max_") and q != "clump_max_absv":
+        return float((host["pos"][mask, ax] + host["r"][mask]).max())
+    if q.startswith("clump_min_"):
+        return float((host["pos"][mask, ax] - host["r"][mask]).min())
+    n = len(host["mass"])
+    omask = np.zeros(n, bool)
+    omask[np.unique(host["own"][mask])] = True
+    omask &= (host["family"] != RESERVED_FAMILY) & (np.arange(n)
+                                                     < s.GetNumClumps())
+    absv = np.linalg.norm(host["vel"][omask], axis=1)
+    return {
+        "clump_max_absv": lambda: absv.max(),
+        "clump_absv": lambda: absv.mean(),
+        "clump_kinetic_energy": lambda: (
+            0.5 * host["mass"][omask] * (host["vel"][omask] ** 2).sum(1)
+            + 0.5 * (host["moi"][omask] * host["omg"][omask] ** 2).sum(1)
+        ).sum(),
+        "clump_mass": lambda: host["mass"][omask].sum(),
+        "clump_volume": lambda: s._owner_volume[omask[:len(
+            s._owner_volume)]].sum(),
+        "clump_count": lambda: float(omask.sum()),
+    }[q]()
+
+
+def output_inspectors(torch, s):
+    """Every quantity in four region kinds (none, a box, a ball, the box
+    as a host callable) against float64 numpy over the copied state;
+    host microseconds per GetValue."""
+    import warnings
+
+    from dem_engine_tpu_torch import BoxRegion, DEMInspector, SphereRegion
+
+    st = s.state
+    o, sph = st.owners, st.spheres
+    own = sph.owner.cpu().numpy()
+    q64 = o.quat.cpu().numpy().astype(np.float64)[own]
+    rel = sph.relpos.cpu().numpy().astype(np.float64)
+    t = 2.0 * np.cross(q64[:, 1:], rel)
+    rot = rel + q64[:, :1] * t + np.cross(q64[:, 1:], t)
+    host = dict(pos=s.GetOwnerPosition()[own] + rot,
+                r=sph.radius.cpu().numpy().astype(np.float64), own=own,
+                vel=s.GetOwnerVelocity().astype(np.float64),
+                omg=s.GetOwnerAngVel().astype(np.float64),
+                mass=s.GetOwnerMass().astype(np.float64),
+                moi=s.GetOwnerMOI().astype(np.float64),
+                family=s.GetOwnerFamily())
+    p = host["pos"]
+    # a box over the lower-left quarter and the lower half, a ball of a
+    # quarter of the bed's width around its middle; no sphere centre
+    # near a boundary
+    lo = p.min(0) - 1.0
+    hi = np.asarray([gap_cut(p[:, a], 0.5, window=0.01) for a in range(3)])
+    c = 0.5 * (p.min(0) + p.max(0))
+    width = p[:, 0].max() - p[:, 0].min()
+    d = np.linalg.norm(p - c, axis=1)
+    rad = gap_cut(d, float(np.mean(d <= 0.25 * width)), window=0.01)
+    box, ball = BoxRegion(lo, hi), SphereRegion(c, rad)
+    masks = {"none": np.ones(len(p), bool), "box": box(p), "sphere": ball(p),
+             "host": box(p)}
+    regions = {"none": None, "box": box, "sphere": ball,
+               "host": lambda x: box(x)}
+    # the device reduces f32 LBF-relative positions: 16 ulps of the
+    # domain's extent
+    ext_tol = 16 * float(np.spacing(np.float32(2 * np.abs(s._lbf).max())))
+    worst, us = {}, {}
+    for kind, region in regions.items():
+        times = []
+        with warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            for q in QUANTITIES:
+                ins = s.CreateInspector(q, region)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = ins.GetValue()
+                times.append(time.perf_counter() - t0)
+                ref = inspect_ref(s, q, masks[kind], host)
+                if q.startswith(("clump_max_", "clump_min_")) and (
+                        q != "clump_max_absv"):
+                    err, ok = abs(got - ref), abs(got - ref) <= ext_tol
+                elif q == "clump_count":
+                    err, ok = abs(got - ref), got == ref > 0
+                else:
+                    err = abs(got - ref) / max(abs(ref), 1e-30)
+                    ok = err <= (1e-6 if q == "clump_max_absv" else 1e-5)
+                worst[kind, q] = err
+                if not ok:
+                    fail(f"inspector {q} in region {kind}: {got!r} against "
+                         f"the float64 reduction {ref!r}")
+        if kind == "host" and bool(warned) != (
+                len(p) > DEMInspector.HOST_WARN_SPHERES):
+            fail(f"a host-callable region over {len(p)} spheres gave "
+                 f"{len(warned)} warnings")
+        us[kind] = 1e6 * float(np.median(times))
+    ext = max(v for (_, q), v in worst.items() if q in QUANTITIES[:6])
+    sums = max(v for (_, q), v in worst.items() if q in QUANTITIES[6:11])
+    print(f"[output] inspectors: {len(QUANTITIES)} quantities x 4 regions "
+          f"(box {int(masks['box'].sum())}, ball {int(masks['sphere'].sum())} "
+          f"of {len(p)} spheres) against float64 numpy: extents within "
+          f"{ext:.3g} m (tol {ext_tol:.3g}), speeds and sums within "
+          f"{sums:.3g} relative, counts exact; host us per GetValue "
+          "(median): " + ", ".join(f"{k} {v:.1f}" for k, v in us.items()),
+          flush=True)
+    return us
+
+
+def output_clump_files(s, d):
+    """WriteClumpFile in CSV and binary, read back and held to the
+    getters to the written precision (exactly: CSV floats are repr)."""
+    n = s.GetNumClumps()
+    want = {"xyz": s.GetOwnerPosition()[:n],
+            "quat": s.GetOwnerOriQ()[:n].astype(np.float64),
+            "vel": s.GetOwnerVelocity()[:n].astype(np.float64),
+            "ang_vel": s.GetOwnerAngVel()[:n].astype(np.float64)}
+    figs = {}
+    for fmt in ("csv", "binary"):
+        path = os.path.join(d, f"clumps.{fmt}")
+        s.SetOutputFormat(fmt)
+        t0 = time.perf_counter()
+        s.WriteClumpFile(path)
+        figs[fmt] = (time.perf_counter() - t0, os.path.getsize(path))
+    s.SetOutputFormat("csv")
+    t0 = time.perf_counter()
+    got = {"xyz": s.ReadClumpXyzFromCsv(os.path.join(d, "clumps.csv")),
+           "quat": s.ReadClumpQuatFromCsv(os.path.join(d, "clumps.csv")),
+           "vel": s.ReadClumpVelFromCsv(os.path.join(d, "clumps.csv")),
+           "ang_vel": s.ReadClumpAngVelFromCsv(os.path.join(d,
+                                                            "clumps.csv"))}
+    t_read = time.perf_counter() - t0
+    for key, by_type in got.items():
+        if list(by_type) != ["bed"] or not np.array_equal(by_type["bed"],
+                                                          want[key]):
+            fail(f"the clump file's {key} read back {list(by_type)} unlike "
+                 "the getters")
+    z = np.load(os.path.join(d, "clumps.binary"))
+    cols = {"xyz": ("x", "y", "z"), "quat": ("Qw", "Qx", "Qy", "Qz"),
+            "vel": ("v_x", "v_y", "v_z"), "ang_vel": ("w_x", "w_y", "w_z")}
+    for key, names in cols.items():
+        if not np.array_equal(np.stack([z[c] for c in names], 1),
+                              want[key]):
+            fail(f"the binary clump file's {key} differs from the getters")
+    if not (z["clump_type"] == "bed").all():
+        fail("the binary clump file's clump_type is not the template's name")
+    print(f"[output] WriteClumpFile: {n} rows; CSV {figs['csv'][0]:.3f} s, "
+          f"{figs['csv'][1]} bytes; binary {figs['binary'][0]:.3f} s, "
+          f"{figs['binary'][1]} bytes; the four ReadClump*FromCsv "
+          f"{t_read:.3f} s; both equal to GetOwnerPosition/OriQ/Velocity/"
+          "AngVel exactly, one type 'bed'", flush=True)
+
+
+def output_contact_files(torch, s, d):
+    """WriteContactFile in CSV and binary, its time split (the force
+    pass with extras, the device-side selection with the copies to the
+    host, the formatting); its rows against the tables; a force_thres
+    run against the rows with |f| > thres."""
+    st = s.state
+    counts = {1: int(st.ss.count), 2: int(st.st.count), 11: int(st.sa.count)}
+    path = os.path.join(d, "contacts.csv")
+    s.SetContactOutputFormat("csv")
+    reset_counts()
+    t0 = time.perf_counter()
+    s.WriteContactFile(path)
+    t_csv = time.perf_counter() - t0
+    launches = read_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s._fill_contact_fields()
+    torch.cuda.synchronize()
+    t_fill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blocks = s._contact_blocks()
+    t_copy = time.perf_counter() - t0
+    copied = sum(v.nbytes for b in blocks for k, v in b.items()
+                 if isinstance(v, np.ndarray)) + sum(
+        v.nbytes for b in blocks for v in b["wildcards"].values())
+    del blocks
+    s.SetContactOutputFormat("binary")
+    t0 = time.perf_counter()
+    s.WriteContactFile(os.path.join(d, "contacts.binary"))
+    t_bin = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idA, idB, ctype = s.ReadContactPairsFromCsv(path)
+    t_read = time.perf_counter() - t0
+    z = np.load(os.path.join(d, "contacts.binary"))
+    per_type = {c: int((ctype == c).sum()) for c in counts}
+    n_ss = counts[1]
+    if not (len(idA) == s.GetNumContacts() == sum(counts.values())
+            and per_type == counts and launches["B-extras"] == 1
+            and np.array_equal(idA[:n_ss], st.ss.idA[:n_ss].cpu().numpy())
+            and np.array_equal(idB[:n_ss], st.ss.idB[:n_ss].cpu().numpy())
+            and np.array_equal(z["A"], idA) and np.array_equal(z["B"], idB)
+            and np.array_equal(z["contact_type"], ctype)):
+        fail(f"the contact file's rows ({per_type}, {len(idA)} read) differ "
+             f"from the tables ({counts}) or the query ran {launches}")
+    f = np.stack([z[c] for c in ("f_x", "f_y", "f_z")], 1)
+    norm = np.linalg.norm(f, axis=1)
+    # the widest gap between the 5 % and 95 % quantiles: |f| on the
+    # card and here may part by an ulp
+    thres = np.float32(gap_cut(norm, 0.5, window=0.45))
+    above = norm[norm > thres].min()
+    below = norm[norm <= thres].max()
+    if above - below < 16 * np.spacing(thres):
+        fail(f"no clear force threshold: |f| {below} and {above} around it")
+    t0 = time.perf_counter()
+    s.WriteContactFile(os.path.join(d, "kept.binary"), force_thres=thres)
+    t_thr = time.perf_counter() - t0
+    k = np.load(os.path.join(d, "kept.binary"))
+    keep = norm > thres
+    if not (0 < keep.sum() < len(keep) and all(
+            np.array_equal(k[c], z[c][keep]) for c in z.files)):
+        fail(f"force_thres {thres:.6g} kept {len(k['A'])} rows, |f| > thres "
+             f"holds for {int(keep.sum())}")
+    s.SetContactOutputFormat("csv")
+    print(f"[output] WriteContactFile: {len(idA)} rows (SS {counts[1]}, ST "
+          f"{counts[2]}, SA {counts[11]}), launches {launches}; CSV "
+          f"{t_csv:.3f} s, {os.path.getsize(path)} bytes = force pass with "
+          f"extras {t_fill * 1e3:.1f} ms + device selection and copies to "
+          f"the host {t_copy * 1e3:.1f} ms ({copied} bytes) + formatting "
+          f"{t_csv - t_fill - t_copy:.3f} s; binary {t_bin:.3f} s, "
+          f"{os.path.getsize(os.path.join(d, 'contacts.binary'))} bytes; "
+          f"ReadContactPairsFromCsv {t_read:.3f} s; force_thres {thres:.6g} "
+          f"(binary, {t_thr:.3f} s; |f| {below:.6g} and {above:.6g} on "
+          f"its sides) kept {int(keep.sum())} rows, exactly those with "
+          "|f| > thres", flush=True)
+
+
+def phase_output(torch, n_clumps, k, steps):
+    """The read side of DEMSolver on the API's mono lattice (a named
+    template), after one chunk: inspectors, the clump and contact files
+    (in a temporary directory, removed after), ProfileStageTimings with
+    the state held bit for bit, then `steps` steps of DoDynamics with
+    each K-step window under torch.cuda.set_sync_debug_mode("error") and
+    ShowTimingStats' counts."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    h = API_H
+    torch.cuda.empty_cache()
+    s = api_solver(n_clumps, k, None, name="bed")
+    s.DoDynamics(k * h)
+    us = output_inspectors(torch, s)
+    d = tempfile.mkdtemp(prefix="chip_smoke_output_")
+    try:
+        output_clump_files(s, d)
+        output_contact_files(torch, s, d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    # the stage profile leaves the state as it was, bit for bit
+    before = {p: t.clone() for p, t in state_tensors(s.state)}
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        stages = s.ProfileStageTimings(reps=5)
+    t_prof = time.perf_counter() - t0
+    changed = [p for p, t in state_tensors(s.state)
+               if not torch.equal(t, before[p])]
+    for line in out.getvalue().splitlines():
+        print(f"[output] {line}", flush=True)
+    if changed or len(before) < 40 or not all(
+            np.isfinite(v) and v >= 0 for v in stages.values()):
+        fail(f"ProfileStageTimings changed {changed} or gave {stages}")
+    print(f"[output] ProfileStageTimings(reps=5): {t_prof:.3f} s, "
+          f"{len(before)} state tensors unchanged bit for bit", flush=True)
+    del before
+    # DoDynamics with the timers on, each K-step window under sync-debug
+    s.ClearTimingStats()
+    windows = []
+    timed_steps = s.engine.timed_steps
+
+    def guarded(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return timed_steps(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            windows.append(1)
+
+    s.engine.timed_steps = guarded
+    t0 = time.perf_counter()
+    s.DoDynamics(steps * h)
+    dt = time.perf_counter() - t0
+    del s.engine.timed_steps
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        s.ShowTimingStats()
+    text = out.getvalue()
+    for line in text.splitlines():
+        print(f"[output] {line}", flush=True)
+    n_ref = -(-steps // k)
+    if not (len(windows) == n_ref
+            and f"over {steps} steps, {n_ref} CD refreshes" in text
+            and f"({n_ref} refreshes," in text and f"({steps} steps," in text):
+        fail(f"ShowTimingStats does not count {steps} steps and {n_ref} "
+             f"refreshes ({len(windows)} windows)")
+    print(f"[output] DoDynamics of {steps} steps with the timers on: "
+          f"{dt * 1e3 / steps:.3f} ms/step; its {len(windows)} K-step "
+          "windows under sync-debug 'error' raised nothing", flush=True)
+    physics(torch, s.state, s.engine.cfg.voxel_size, "output")
+    del s
+    torch.cuda.empty_cache()
+    return us
+
+
+def phase_output_device(torch, n_clumps, k, reps=5):
+    """torch.profiler on the output path, after every timed run: the
+    device time of a query's force pass with extras (B-extras and its
+    sums) on the API's table, and the launches of one step of the
+    DoDynamics K-step window with the timers on."""
+    from dem_engine_tpu_torch.defines import I
+
+    torch.cuda.empty_cache()
+    s = api_solver(n_clumps, k, None, name="bed")
+    s.DoDynamics(k * API_H)
+    ss, n = s.state.ss, s.state.owners.n
+    for attempt in range(3):  # at times a profile records nothing
+        rows = device_rows(torch, lambda: [s._fill_contact_fields()
+                                           for _ in range(reps)], per=reps)
+        b = [r for r in rows if "fused_hertz" in r[2]]
+        if b:
+            break
+        print(f"[output device] profile {attempt + 1} of 3 held no "
+              "B-extras event", flush=True)
+    else:
+        fail("the profiler recorded no B-extras launch")
+    bnd = bound(*bytes_B(ss, n, extras=True))
+    print(f"[output device] a query's force pass on the API's table "
+          f"(cap_ss {ss.cap}): B-extras {b[0][0]:.4f} ms device "
+          f"x{b[0][1]:g} a query ({b[0][0] / bnd[0]:.2f}x its bound "
+          f"{bnd[0]:.4f} ms); the whole pass "
+          f"{sum(r[0] for r in rows):.4f} ms in "
+          f"{sum(r[1] for r in rows):g} launches", flush=True)
+    ins = s.CreateInspector("clump_kinetic_energy")
+    rows = device_rows(torch, lambda: [ins.GetValue() for _ in range(reps)],
+                       per=reps)
+    print(f"[output device] GetValue (clump_kinetic_energy, no region): "
+          f"{sum(r[0] for r in rows):.4f} ms of device time in "
+          f"{sum(r[1] for r in rows):g} launches a call; largest: "
+          + "; ".join(f"{ms * 1e3:.1f} us x{cnt:g} {name[:40]}"
+                      for ms, cnt, name in rows[:4]), flush=True)
+    params_k = s.params.replace(max_drift=torch.tensor(
+        k, dtype=I, device=DEVICE))
+    h = float(s.params.h)
+    rows = device_rows(torch, lambda: s.engine.timed_steps(
+        s.state, params_k, reps, h, []), per=reps)
+    print(f"[output device] DoDynamics' K-step window with the timers on: "
+          f"{sum(r[1] for r in rows):g} launches and "
+          f"{sum(r[0] for r in rows):.3f} ms of device time per step",
+          flush=True)
+    del s
+    torch.cuda.empty_cache()
+
+
 KERNELS = {
     "A": ("segment_sum", "dem_engine_tpu_torch/csrc/segred.cu",
           "dem_engine_tpu/ops/pallas_segred.py:165"),
@@ -1669,7 +2089,7 @@ KERNELS = {
               "dem_engine_tpu/ops/forces.py:165 _uniq_layout"),
 }
 PHASES = ("kernels", "parity", "main", "poly", "breakdown", "api",
-          "families", "uniq")
+          "families", "uniq", "output")
 
 
 def main():
@@ -1711,6 +2131,8 @@ def main():
         phase_api_poly(torch, args.clumps, args.k, args.steps)
     if "families" in phases:
         phase_families(torch, args.clumps, args.k, args.steps)
+    if "output" in phases:
+        phase_output(torch, args.clumps, args.k, args.steps)
     # torch.profiler only from here on, so that no timed run follows a
     # profile in its process; the breakdowns settle their beds anew, so
     # no timed run shares the card's memory with them either
@@ -1750,6 +2172,8 @@ def main():
         phase_breakdown(torch, s.engine, s.state, s.params, args.k,
                         tag="families breakdown")
         del s
+    if "output" in phases:
+        phase_output_device(torch, args.clumps, args.k)
     print(card)
     if kern and main_counts and api_counts:
         # each kernel's launches on the path that runs it: A, B and C on

@@ -4,7 +4,8 @@ kernels for NVIDIA Hopper.
 A port of ``dem_engine_tpu`` (JAX), which stays the reference. Users
 drive it through ``DEMSolver`` (clumps of spheres on analytical
 boundaries and triangle meshes, the built-in Hertz models, family
-prescriptions and rules, contact detection every K steps),
+prescriptions and rules, contact detection every K steps; inspectors,
+clump and contact files, stage timing),
 which runs ``solver.Engine.advance``. On a CUDA device its kernels
 (``csrc/``) do the SS force pass (with its unique-fetch and query
 variants), the owner wrench sums and the SS pair search; on the CPU
@@ -12,9 +13,20 @@ their plain PyTorch versions run. Entry points run on the card unless
 the caller passes ``device="cpu"``. The package never imports JAX.
 """
 
-from .api import DEMSolver, DEMTracker  # noqa: F401
+from .api import (  # noqa: F401
+    BoxRegion,
+    DEMInspector,
+    DEMSolver,
+    DEMTracker,
+    SphereRegion,
+)
 from .cases import build_case  # noqa: F401
-from .defines import TimeIntegrator, Verbosity  # noqa: F401
+from .defines import (  # noqa: F401
+    ContactOutputContent,
+    OutputContent,
+    TimeIntegrator,
+    Verbosity,
+)
 from .models import (  # noqa: F401
     FamilyChange,
     FamilyPrescription,

@@ -6,8 +6,12 @@ analytical boundaries and triangle meshes (deformable through their
 trackers), the two-class CD of polydisperse beds, the built-in Hertz
 models, a fixed CD cadence, family prescriptions (fixed, prescribed and
 corrected families, added accelerations), family-change rules, the
-family contact masks and the owner-state setters. Persistency,
-checkpoints, inspectors and contact-file output are not here yet.
+family contact masks and the owner-state setters; the read side:
+inspectors (device reductions that send one scalar to the host), clump,
+contact, sphere and mesh files with their CSV readers, the read-only
+getters and tracker reads, and the timing statistics
+(``ShowTimingStats``, ``ProfileStageTimings``). Persistency,
+checkpoints, custom force models and wildcards are not here yet.
 
 A prescription or rule given as a callable receives the step's start
 time `t` as a 0-d float32 tensor on the solver's device and must
@@ -32,7 +36,8 @@ Typical use:
 
 On a CUDA device the step runs kernels B and A (once per table: SS, ST,
 SA), each refresh kernel C (twice, on member tables, in two-class mode),
-and the contact queries run kernel B with its extras outputs. Unique
+and the contact queries and contact files run kernel B with its extras
+outputs, once per call. Unique
 fetch (kernel B-ub and its lists launch at each refresh) is off by
 default on the card: it did not beat kernel B on the H100, whose L2
 already serves B's gathers.
@@ -43,6 +48,9 @@ and unique fetch is off, as the JAX package runs on its CPU.
 from __future__ import annotations
 
 import dataclasses
+import os
+import time as _time
+import warnings
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -75,10 +83,10 @@ from .models.prescriptions import (
 )
 from .models.prescriptions import fixed as _fixed_prescription
 from .models.prescriptions import merge as _merge_prescription
-from .ops import forces, quat
+from .ops import binning, forces, quat
 from .ops.fused_force import fused_step_ss
 from .ops.voxel import choose_voxel_size, decode_host, encode_host
-from .solver import Engine, sphere_world_pos
+from .solver import Engine, sphere_pos_margins, sphere_world_pos
 from .state import SolverConfig
 from .structs import (
     DEMClumpBatch,
@@ -194,6 +202,132 @@ class DEMTracker:
               if len(pts) else np.zeros(3))
         return pts, fs, tq
 
+    def GetContactForcesAndLocalTorque(self, offset: int = 0):
+        """As GetContactForcesAndGlobalTorque, the torque in the owner's
+        body frame (the frame of MOI and omg)."""
+        pts, fs, tq = self.GetContactForcesAndGlobalTorque(offset)
+        q = self._s.state.owners.quat[self._oid(offset)].cpu()
+        tq_l = quat.rotate_inv(q[None, :], torch.as_tensor(
+            tq, dtype=defines.F)[None, :])[0]
+        return pts, fs, _np(tq_l).astype(np.float64)
+
+    def _for_all(self, read):
+        pts, fs, tqs = [], [], []
+        for i in range(len(self.owner_ids)):
+            p, f, t = read(i)
+            pts.append(p)
+            fs.append(f)
+            tqs.append(t)
+        if not pts:
+            return np.zeros((0, 3)), np.zeros((0, 3)), np.zeros((0, 3))
+        return np.concatenate(pts), np.concatenate(fs), np.stack(tqs)
+
+    def GetContactForcesAndGlobalTorqueForAll(self):
+        """(points, forces, per-owner global torques (n, 3))."""
+        return self._for_all(self.GetContactForcesAndGlobalTorque)
+
+    def GetContactForcesAndLocalTorqueForAll(self):
+        return self._for_all(self.GetContactForcesAndLocalTorque)
+
+    def GetContactForcesForAll(self):
+        """(points, forces) over every owner this tracker covers."""
+        return self._s.GetOwnerContactForces(self.owner_ids)
+
+    def GetContactClumps(self, offset: int = 0):
+        """Owner ids of the clumps in contact with this owner."""
+        return self._s.GetOwnerContactClumps(self._oid(offset))
+
+    # --- reads of mass properties and accelerations ----------------------
+    def Mass(self, offset: int = 0):
+        return float(self._s.state.owners.mass[self._oid(offset)])
+
+    def MOI(self, offset: int = 0):
+        return _np(self._s.state.owners.moi[self._oid(offset)])
+
+    def ContactAcc(self, offset: int = 0):
+        """The last step's contact acceleration, global frame."""
+        return _np(self._s.state.owners.lin_acc[self._oid(offset)])
+
+    def ContactAngAccLocal(self, offset: int = 0):
+        return _np(self._s.state.owners.ang_acc[self._oid(offset)])
+
+    def _rotated(self, field, ids):
+        """Owner field `field` of `ids`, rotated to the global frame (f32
+        rotation, float64 result)."""
+        o = self._s.state.owners
+        idx = torch.as_tensor(np.asarray(ids, np.int64), device=o.quat.device)
+        return _np(quat.rotate(o.quat[idx], getattr(o, field)[idx])).astype(
+            np.float64)
+
+    def AngVelGlobal(self, offset: int = 0):
+        """The angular velocity in the global frame (omg is stored in the
+        body frame)."""
+        return self._rotated("omg", [self._oid(offset)])[0]
+
+    def GetContactAngAccGlobal(self, offset: int = 0):
+        return self._rotated("ang_acc", [self._oid(offset)])[0]
+
+    def GetOwnerIDs(self):
+        return list(self.owner_ids)
+
+    # plural reads over every tracked owner
+    def Positions(self):
+        return self._s.GetOwnerPosition(self.owner_ids)
+
+    def Velocities(self):
+        return self._s.GetOwnerVelocity(self.owner_ids)
+
+    def AngularVelocitiesLocal(self):
+        return self._s.GetOwnerAngVel(self.owner_ids)
+
+    def AngularVelocitiesGlobal(self):
+        return self._rotated("omg", self.owner_ids)
+
+    def OrientationQuaternions(self):
+        return self._s.GetOwnerOriQ(self.owner_ids)
+
+    def Masses(self):
+        return self._s.GetOwnerMass(self.owner_ids)
+
+    def MOIs(self):
+        return self._s.GetOwnerMOI(self.owner_ids)
+
+    def ContactAccelerations(self):
+        return self._s._owner_field("lin_acc", self.owner_ids)
+
+    def ContactAngularAccelerationsLocal(self):
+        return self._s._owner_field("ang_acc", self.owner_ids)
+
+    def ContactAngularAccelerationsGlobal(self):
+        return self._rotated("ang_acc", self.owner_ids)
+
+    # Get* aliases of the reads
+    def GetPos(self, offset: int = 0):
+        return self.Pos(offset)
+
+    def GetVel(self, offset: int = 0):
+        return self.Vel(offset)
+
+    def GetAngVelLocal(self, offset: int = 0):
+        return self.AngVelLocal(offset)
+
+    def GetOriQ(self, offset: int = 0):
+        return self.OriQ(offset)
+
+    def GetMass(self, offset: int = 0):
+        return self.Mass(offset)
+
+    def GetMOI(self, offset: int = 0):
+        return self.MOI(offset)
+
+    def GetContactAcc(self, offset: int = 0):
+        return self.ContactAcc(offset)
+
+    def GetContactAngAccLocal(self, offset: int = 0):
+        return self.ContactAngAccLocal(offset)
+
+    GetAngVelGlobal = AngVelGlobal
+
     # --- deformable meshes -------------------------------------------------
     def UpdateMesh(self, new_vertices, offset: int = 0):
         """Replace the tracked mesh's node positions (body frame): the
@@ -223,6 +357,180 @@ class DEMTracker:
         v = torch.as_tensor(np.asarray(self.obj.vertices, np.float64),
                             dtype=defines.F)
         return self.Pos(offset)[None, :] + _np(quat.rotate(q, v))
+
+
+class BoxRegion:
+    """Axis-aligned box region of an inspector, user frame."""
+
+    def __init__(self, lo, hi):
+        self.lo = np.asarray(lo, np.float64)
+        self.hi = np.asarray(hi, np.float64)
+
+    def __call__(self, pos):
+        return np.all((pos >= self.lo) & (pos <= self.hi), axis=1)
+
+
+class SphereRegion:
+    """Ball region of an inspector, user frame."""
+
+    def __init__(self, center, radius):
+        self.center = np.asarray(center, np.float64)
+        self.radius = float(radius)
+
+    def __call__(self, pos):
+        return np.linalg.norm(pos - self.center, axis=1) <= self.radius
+
+
+_AXIS_IDX = {"x": 0, "y": 1, "z": 2}
+
+
+def _extent_axis(q):
+    """The axis of a clump_max_* / clump_min_* quantity, else None."""
+    if q.startswith(("clump_max_", "clump_min_")) and q[-1] in _AXIS_IDX:
+        return _AXIS_IDX[q[-1]]
+    return None
+
+
+def _inspect_device(state, q, kind, a, b, vol, n_clump, voxel_size):
+    """An inspector's reduction on the state's device: one 0-d f32
+    tensor. Spheres in the region (`kind` "box": a <= pos <= b; "sphere":
+    |pos - a| <= b[0]; "none": all), LBF-relative; a clump owner is in
+    when any of its spheres is, reserved-family and non-clump owners
+    never."""
+    owners, spheres = state.owners, state.spheres
+    pos = sphere_world_pos(owners, spheres, voxel_size)
+    if kind == "box":
+        m = torch.all((pos >= a) & (pos <= b), dim=1)
+    elif kind == "sphere":
+        m = torch.linalg.vector_norm(pos - a, dim=1) <= b[0]
+    else:
+        m = torch.ones(pos.shape[0], dtype=torch.bool, device=pos.device)
+    ax = _extent_axis(q)
+    if ax is not None:
+        if q.startswith("clump_max_"):
+            return torch.where(m, pos[:, ax] + spheres.radius,
+                               -torch.inf).max()
+        return torch.where(m, pos[:, ax] - spheres.radius, torch.inf).min()
+
+    n = owners.n
+    omask = torch.zeros(n, dtype=torch.int32, device=pos.device)
+    omask = omask.scatter_reduce(0, spheres.owner.long(), m.to(torch.int32),
+                                 "amax") > 0
+    omask &= owners.family != RESERVED_FAMILY
+    omask &= torch.arange(n, device=pos.device) < n_clump
+    absv = torch.linalg.vector_norm(owners.vel, dim=1)
+    if q in ("clump_max_absv", "max_absv"):
+        return torch.where(omask, absv, -torch.inf).max()
+    if q in ("clump_absv", "absv"):
+        return (torch.where(omask, absv, 0.0).sum()
+                / torch.clamp(omask.sum(), min=1))
+    if q == "clump_kinetic_energy":
+        ke = 0.5 * owners.mass * torch.sum(owners.vel ** 2, dim=1)
+        re = 0.5 * torch.sum(owners.moi * owners.omg ** 2, dim=1)
+        return torch.where(omask, ke + re, 0.0).sum()
+    if q == "clump_mass":
+        return torch.where(omask, owners.mass, 0.0).sum()
+    if q == "clump_volume":
+        return torch.where(omask, vol, 0.0).sum()
+    if q == "clump_count":
+        return omask.sum().to(defines.F)
+    raise ValueError(f"unknown inspector quantity {q!r}")
+
+
+class DEMInspector:
+    """A reduction over the live state: clump_max_{x,y,z},
+    clump_min_{x,y,z} (sphere surface extents), clump_max_absv,
+    clump_absv (mean speed), clump_kinetic_energy, clump_mass,
+    clump_volume, clump_count; over the clumps with a sphere in `region`
+    (a BoxRegion, a SphereRegion, any callable pos (n, 3) -> bool (n,),
+    or None for all)."""
+
+    #: spheres above which a host-callable region warns (it reads every
+    #: sphere position back)
+    HOST_WARN_SPHERES = 4 * 65536
+
+    def __init__(self, solver: "DEMSolver", quantity: str, region=None):
+        self._s = solver
+        self.quantity = quantity
+        self.region = region
+        self._warned = False
+
+    def GetValue(self) -> float:
+        """A box, sphere or no region reduces on the state's device and
+        sends one scalar to the host; another callable takes the host
+        path (every sphere position read back once)."""
+        s = self._s
+        region = self.region
+        dev = s.device
+        if region is None:
+            kind, a, b = "none", None, None
+        elif isinstance(region, BoxRegion):
+            kind, a, b = "box", region.lo - s._lbf, region.hi - s._lbf
+        elif isinstance(region, SphereRegion):
+            kind = "sphere"
+            a, b = region.center - s._lbf, [region.radius, 0.0, 0.0]
+        else:
+            return self._host_value()
+        if kind != "none":
+            a = torch.as_tensor(np.asarray(a, np.float32), device=dev)
+            b = torch.as_tensor(np.asarray(b, np.float32), device=dev)
+        val = float(_inspect_device(s.state, self.quantity, kind, a, b,
+                                    s._volume_dev, s._n_clump_owners,
+                                    s._voxel_size))
+        ax = _extent_axis(self.quantity)
+        if ax is not None:
+            val += float(s._lbf[ax])  # back to the user frame
+        return val
+
+    def _host_value(self) -> float:
+        """The region as a host callable on the float64 user-frame sphere
+        positions, the rest in numpy."""
+        s = self._s
+        st = s.state
+        q = self.quantity
+        n_sph = int(st.spheres.n)
+        if n_sph > self.HOST_WARN_SPHERES and not self._warned:
+            warnings.warn(
+                f"Inspector region is a host callable: reading back all "
+                f"{n_sph} sphere positions. Use a BoxRegion/SphereRegion "
+                f"for a device-side reduction (one scalar to host).",
+                stacklevel=3)
+            self._warned = True
+        sph_pos = _np(sphere_world_pos(st.owners, st.spheres, s._voxel_size)
+                      ).astype(np.float64) + s._lbf
+        own = _np(st.spheres.owner)
+        mask = np.asarray(self.region(sph_pos))
+        ax = _extent_axis(q)
+        if ax is not None:
+            r = _np(st.spheres.radius)
+            if q.startswith("clump_max_"):
+                return float((sph_pos[mask, ax] + r[mask]).max())
+            return float((sph_pos[mask, ax] - r[mask]).min())
+        o = st.owners
+        vel = _np(o.vel).astype(np.float64)
+        omg = _np(o.omg).astype(np.float64)
+        m = _np(o.mass).astype(np.float64)
+        moi = _np(o.moi).astype(np.float64)
+        omask = np.zeros(m.shape[0], bool)
+        omask[np.unique(own[mask])] = True
+        omask &= _np(o.family) != RESERVED_FAMILY
+        omask &= np.arange(m.shape[0]) < s._n_clump_owners
+        if q in ("clump_max_absv", "max_absv"):
+            return float(np.linalg.norm(vel[omask], axis=1).max())
+        if q in ("clump_absv", "absv"):
+            return float(np.linalg.norm(vel[omask], axis=1).mean())
+        if q == "clump_kinetic_energy":
+            ke = 0.5 * m[omask] * (vel[omask] ** 2).sum(1)
+            re = 0.5 * (moi[omask] * omg[omask] ** 2).sum(1)
+            return float(ke.sum() + re.sum())
+        if q == "clump_mass":
+            return float(m[omask].sum())
+        if q == "clump_volume":
+            vol = s._owner_volume
+            return float(vol[omask[: len(vol)]].sum())
+        if q == "clump_count":
+            return float(omask.sum())
+        raise ValueError(f"unknown inspector quantity {q!r}")
 
 
 class DEMSolver:
@@ -259,6 +567,12 @@ class DEMSolver:
         self._bounding_bc = "none"
         self._bounding_bc_mat = None
         self._out_format = defines.OutputFormat.CSV
+        self._cnt_out_format = defines.OutputFormat.CSV
+        self._mesh_out_format = "vtk"
+        OC, CC = defines.OutputContent, defines.ContactOutputContent
+        self._out_content = OC.XYZ
+        self._cnt_out_content = (CC.FORCE | CC.POINT | CC.TORQUE
+                                 | CC.CNT_WILDCARD)
         self._pending_trackers: List[DEMTracker] = []
         self._meshes: List[DEMMeshConnected] = []
         self._cd_two_class = None  # None: the radius rule at Initialize
@@ -278,6 +592,19 @@ class DEMSolver:
         self._initialized = False
         self._n_clump_owners = 0
         self._lost_reported = 0
+        # per clump owner: its template (an index into _owner_templates)
+        # and volume; _volume_dev is the volumes on the device, f32, zero
+        # past the clumps
+        self._owner_templates: List[DEMClumpTemplate] = []
+        self._owner_tmpl_idx = np.zeros(0, np.int64)
+        self._owner_volume = np.zeros(0)
+        self._volume_dev = None
+        # statistics
+        self._timers = {"total": 0.0}
+        self._n_refreshes = 0
+        self._n_steps_done = 0
+        self._anomalies: List[str] = []
+        self._stage_timings = None
 
     # ------------------------------------------------------------------
     # world / solver configuration
@@ -378,6 +705,72 @@ class DEMSolver:
             self._rebuild_params()
 
     # ------------------------------------------------------------------
+    # output settings
+    # ------------------------------------------------------------------
+    def SetOutputContent(self, content):
+        """Clump-file columns: OutputContent flags, or a list of their
+        names (XYZ is always in)."""
+        if isinstance(content, (list, tuple)):
+            flags = defines.OutputContent.XYZ
+            for c in content:
+                flags |= defines.OutputContent[c.upper()]
+            content = flags
+        self._out_content = content
+
+    def SetContactOutputContent(self, content):
+        """Contact-file columns: ContactOutputContent flags or names."""
+        if isinstance(content, (list, tuple)):
+            flags = defines.ContactOutputContent.FORCE
+            for c in content:
+                flags |= defines.ContactOutputContent[c.upper()]
+            content = flags
+        self._cnt_out_content = content
+
+    def _fmt(self, f):
+        if isinstance(f, str):
+            if f.lower() == "chpf":
+                self._engine_log(
+                    "WARNING",
+                    "'chpf' output format maps to this package's binary "
+                    "format (compressed npz, same column names; "
+                    "np.load-able) — NOT the reference's external ChPF "
+                    "container")
+            return defines.OutputFormat(f.lower())
+        return f
+
+    def SetOutputFormat(self, fmt):
+        """Clump and sphere files: CSV or BINARY (npz of the same columns;
+        'chpf' is taken as BINARY and warns)."""
+        self._out_format = self._fmt(fmt)
+
+    def SetContactOutputFormat(self, fmt):
+        self._cnt_out_format = self._fmt(fmt)
+
+    def SetMeshOutputFormat(self, fmt):
+        """'vtk' (the default, with facet normals) or 'obj'."""
+        self._mesh_out_format = str(getattr(fmt, "value", fmt)).lower()
+
+    def _set_flag(self, attr, flag, on):
+        cur = getattr(self, attr)
+        setattr(self, attr, (cur | flag) if on else (cur & ~flag))
+
+    def EnableOwnerWildcardOutput(self, flag: bool = True):
+        """Owner wildcards in the clump file (columns once the state
+        carries owner wildcards)."""
+        self._set_flag("_out_content",
+                       defines.OutputContent.OWNER_WILDCARD, flag)
+
+    def EnableContactWildcardOutput(self, flag: bool = True):
+        self._set_flag("_cnt_out_content",
+                       defines.ContactOutputContent.CNT_WILDCARD, flag)
+
+    def EnableGeometryWildcardOutput(self, flag: bool = True):
+        """Geometry wildcards in the sphere file (columns once the state
+        carries them)."""
+        self._set_flag("_out_content",
+                       defines.OutputContent.GEO_WILDCARD, flag)
+
+    # ------------------------------------------------------------------
     # materials and bodies
     # ------------------------------------------------------------------
     def LoadMaterial(self, props: Union[Dict[str, float], DEMMaterial]):
@@ -394,6 +787,12 @@ class DEMSolver:
 
     def LoadClumpType(self, mass, moi, radii, relpos,
                       materials=None) -> DEMClumpTemplate:
+        """A clump template; `radii` may instead be the path of a clump
+        CSV (x,y,z,r columns, the data/clumps format), and then `relpos`
+        is the material."""
+        if isinstance(radii, (str, os.PathLike)):
+            materials = relpos
+            radii, relpos = io_utils.read_clump_template_csv(radii)
         radii = np.asarray(radii, np.float64).reshape(-1)
         relpos = np.asarray(relpos, np.float64).reshape(-1, 3)
         if isinstance(materials, DEMMaterial):
@@ -627,12 +1026,11 @@ class DEMSolver:
         """condition: (OwnerView, t) -> bool[N] tensor, evaluated every
         step after the integrator. view.pos is LBF-relative (the internal
         frame): add solver._lbf to user-frame thresholds. Rules do not
-        cascade within a step."""
+        cascade within a step. Initialize takes the rules added before
+        it; as in the JAX package, a rule added after it is kept in the
+        list but never runs."""
         self._family_changes.append(
             FamilyChange(from_family, to_family, condition))
-        if self._initialized:
-            self.engine.cfg = dataclasses.replace(
-                self.engine.cfg, family_changes=tuple(self._family_changes))
 
     def _mask_changed(self):
         # kernel C and the SA/ST searches test the mask at every refresh
@@ -693,7 +1091,10 @@ class DEMSolver:
     # ------------------------------------------------------------------
     def _flatten_batch(self, b: DEMClumpBatch, oid0: int) -> dict:
         """One batch's owner and sphere arrays, clump by clump in batch
-        order, built per distinct template instead of per clump."""
+        order, built per distinct template instead of per clump; with the
+        batch's distinct templates (`kinds`), each clump's index into
+        them and each clump's volume (the template's, else the sum of its
+        spheres')."""
         n = b.n
         slot: Dict[int, int] = {}
         kinds: List[DEMClumpTemplate] = []
@@ -704,6 +1105,10 @@ class DEMSolver:
                 k = slot[id(t)] = len(kinds)
                 kinds.append(t)
             t_idx[i] = k
+        vol_t = np.asarray([
+            t.volume if t.volume is not None
+            else float((4.0 / 3.0 * np.pi * np.asarray(t.radii) ** 3).sum())
+            for t in kinds], np.float64)
         n_comp_t = np.asarray([t.n_comp for t in kinds], np.int64)
         n_comp = n_comp_t[t_idx]
         t_off = np.cumsum(n_comp_t) - n_comp_t
@@ -737,6 +1142,7 @@ class DEMSolver:
                            .reshape(-1, 3))[comp],
             s_rad=per_comp(lambda t: np.asarray(t.radii, np.float64))[comp],
             s_mat=mats[comp],
+            kinds=kinds, t_idx=t_idx, volume=vol_t[t_idx],
         )
 
     def Initialize(self, dry_run: bool = False):
@@ -760,6 +1166,13 @@ class DEMSolver:
             parts.append(self._flatten_batch(b, oid))
             oid += b.n
         self._n_clump_owners = oid
+        self._owner_templates = [t for p in parts for t in p["kinds"]]
+        starts = np.cumsum([0] + [len(p["kinds"]) for p in parts])
+        self._owner_tmpl_idx = np.concatenate(
+            [p["t_idx"] + k0 for p, k0 in zip(parts, starts)]
+            or [np.zeros(0, np.int64)])
+        self._owner_volume = np.concatenate(
+            [p["volume"] for p in parts] or [np.zeros(0)])
 
         ext = dict(pos=[], quat=[], family=[], mass=[], moi=[])
         a_owner, a_type, a_rel, a_dir, a_size, a_sign, a_mat = (
@@ -800,6 +1213,7 @@ class DEMSolver:
             oid += 1
         n_ext = len(self._extern_objs) + len(self._meshes)
         n_owners = oid
+        oid_clumps = self._n_clump_owners
         if n_owners == 0:
             raise RuntimeError("nothing to simulate: add clumps first")
 
@@ -877,6 +1291,9 @@ class DEMSolver:
         )
         self.state = make_state(owners, spheres, cfg, tris=tris,
                                 anals=anals)
+        vol = np.zeros(n_owners, np.float32)
+        vol[:oid_clumps] = self._owner_volume
+        self._volume_dev = torch.as_tensor(vol, device=self.device)
         self.engine = Engine(cfg)
         self._rebuild_params()
         self._initialized = True
@@ -961,6 +1378,7 @@ class DEMSolver:
         if not self._initialized:
             raise RuntimeError("call Initialize() first")
         n_steps = int(round(duration / self._h))
+        t0 = _time.perf_counter()
         if self._next_step_acc and n_steps > 1:
             # one-shot next-step accelerations apply to the first step only
             self.state = self.engine.advance(self.state, self.params, 1,
@@ -972,6 +1390,11 @@ class DEMSolver:
         if self._next_step_acc:
             self._clear_next_step_acc()
         self._sync()
+        # the engine's chunk timers are complete after the sync
+        self.engine.read_timers()
+        self._timers["total"] += _time.perf_counter() - t0
+        self._n_steps_done += n_steps
+        self._n_refreshes += -(-n_steps // self._update_freq)
         self._check_lost_contacts()
 
     def _check_lost_contacts(self):
@@ -983,6 +1406,7 @@ class DEMSolver:
                    f"history were not re-detected at a CD refresh and lost "
                    f"their wildcards (total {lost}); consider larger "
                    f"margins")
+            self._anomalies.append(msg)
             self._engine_log("STEP_METRIC", msg)
             self._lost_reported = lost
 
@@ -991,12 +1415,60 @@ class DEMSolver:
                                          self._update_freq)
         if self._next_step_acc:
             self._clear_next_step_acc()
+        self._n_steps_done += 1
 
     # ------------------------------------------------------------------
     # getters
     # ------------------------------------------------------------------
     def GetTime(self) -> float:
         return float(self.state.time)
+
+    def SetTime(self, t: float):
+        self.state = self.state.replace(
+            time=torch.tensor(t, dtype=defines.F, device=self.device))
+
+    def GetSimTime(self) -> float:
+        return self.GetTime()
+
+    def SetSimTime(self, t: float):
+        self.SetTime(t)
+
+    def GetTimeStepSize(self) -> float:
+        return float(self._h)
+
+    def GetInitStatus(self) -> bool:
+        return bool(self._initialized)
+
+    def GetUpdateFreq(self) -> int:
+        """The CD cadence in effect: the setting (the port has no
+        adaptive cadence)."""
+        return int(self._update_freq)
+
+    def GetContactForceModel(self):
+        return self._force_model
+
+    def GetAvgSphContacts(self) -> float:
+        return 2.0 * int(self.state.ss.count) / max(self.state.spheres.n, 1)
+
+    def GetMaxVelocity(self) -> float:
+        return float(self.state.max_vel)
+
+    def _next_grid(self):
+        """(bin size, bins per axis) of the next refresh's SS grid, from
+        the live margins as refresh_contacts computes them."""
+        st = self.state
+        _, margin, _, _ = sphere_pos_margins(st.owners, st.spheres,
+                                             self.params, self._voxel_size)
+        return binning.build_grid(self.params.domain,
+                                  (st.spheres.radius + margin).max(),
+                                  self.params.bin_factor)
+
+    def GetBinSize(self) -> float:
+        return float(self._next_grid()[0])
+
+    def GetBinNum(self) -> int:
+        nb = _np(self._next_grid()[1])
+        return int(nb[0]) * int(nb[1]) * int(nb[2])
 
     def GetNumClumps(self) -> int:
         return self._n_clump_owners
@@ -1034,6 +1506,10 @@ class DEMSolver:
 
     def GetOwnerMass(self, ids=None):
         return self._owner_field("mass", ids)
+
+    def GetOwnerMOI(self, ids=None):
+        """Principal MOI, body frame."""
+        return self._owner_field("moi", ids)
 
     # ------------------------------------------------------------------
     # contact queries
@@ -1077,32 +1553,81 @@ class DEMSolver:
         z = torch.zeros((t.cap, 3), dtype=defines.F, device=self.device)
         return z, z, z
 
-    def GetContactDetailedInfo(self):
-        """Contact table dump with forces and points: one dict per contact
-        kind with live rows, {"kind", "idA", "idB", "force", "torque_only",
-        "point", "wildcards"}."""
-        self._fill_contact_fields()
+    def _contact_blocks(self, force_thres=None):
+        """The live rows of each contact table, SS then ST then SA, as
+        host arrays: {"kind", "idA", "idB", "force", "torque_only",
+        "point", "wildcards"} per table with rows. The caller has filled
+        the query fields (``_fill_contact_fields``). Rows are selected and
+        points formed on the device (float64: the contact point plus owner
+        A's decoded position, in the user frame), so only the kept rows
+        cross to the host; with `force_thres` only rows with |force| >
+        force_thres are kept."""
+        st = self.state
+        own = st.spheres.owner.long()
+        vox, loc = st.owners.vox, st.owners.loc
+        lbf = torch.as_tensor(self._lbf, dtype=torch.float64,
+                              device=self.device)
         out = []
-        own = _np(self.state.spheres.owner)
-        opos = self.GetOwnerPosition()
-        for name, tbl in (("SS", self.state.ss), ("ST", self.state.st),
-                           ("SA", self.state.sa)):
+        for name, tbl in (("SS", st.ss), ("ST", st.st), ("SA", st.sa)):
             n = int(tbl.count)
             if n == 0:
                 continue
             f3, t3, cp3 = (self._ss_fields() if name == "SS"
                            else (tbl.force, tbl.torque, tbl.cpoint))
-            idA = _np(tbl.idA[:n])
+            if force_thres is None:
+                def take(x, n=n):
+                    return x[:n]
+            else:
+                keep = torch.nonzero(torch.linalg.vector_norm(
+                    f3[:n], dim=1) > force_thres)[:, 0]
+
+                def take(x, n=n, keep=keep):
+                    return x[:n][keep]
+            idA = take(tbl.idA)
+            oa = own[idA.long()]
+            opos = (vox[oa].double() * float(self._voxel_size)
+                    + loc[oa].double()) + lbf
             out.append(dict(
-                kind=name,
-                idA=idA,
-                idB=_np(tbl.idB[:n]),
-                force=_np(f3[:n]),
-                torque_only=_np(t3[:n]),
-                point=_np(cp3[:n]) + opos[own[idA]],
-                wildcards={k: _np(v[:n]) for k, v in tbl.wildcards.items()},
+                kind=name, idA=_np(idA), idB=_np(take(tbl.idB)),
+                force=_np(take(f3)), torque_only=_np(take(t3)),
+                point=_np(take(cp3).double() + opos),
+                wildcards={k: _np(take(v)) for k, v in tbl.wildcards.items()},
             ))
         return out
+
+    def GetContactDetailedInfo(self):
+        """Contact table dump with forces and points: one dict per contact
+        kind with live rows, {"kind", "idA", "idB", "force", "torque_only",
+        "point", "wildcards"}. Runs the force pass's extras once (kernel
+        B-extras on the card)."""
+        self._fill_contact_fields()
+        return self._contact_blocks()
+
+    def GetContacts(self, families=None):
+        """Live clump-clump contact pairs as owner ids, optionally only
+        those with an owner whose family is in `families`."""
+        pairs = self.GetClumpContacts()
+        if families is None:
+            return pairs
+        fams = self.GetOwnerFamily()
+        inc = (np.isin(fams[pairs[:, 0]], list(families))
+               | np.isin(fams[pairs[:, 1]], list(families)))
+        return pairs[inc]
+
+    def GetOwnerContactClumps(self, owner_id: int):
+        """Clump owner ids in contact with `owner_id` (any table), sorted;
+        selected on the device."""
+        found = []
+        for t in (self.state.ss, self.state.st, self.state.sa):
+            n = int(t.count)
+            if n == 0:
+                continue
+            oa, ob = t.own_a[:n], t.own_b[:n]
+            found += [ob[oa == owner_id], oa[ob == owner_id]]
+        if not found:
+            return np.zeros(0, np.int64)
+        ids = _np(torch.unique(torch.cat(found)))
+        return ids[(ids >= 0) & (ids < self._n_clump_owners)]
 
     def _contact_forces_for_owner(self, owner_id: int,
                                   with_torque: bool = False):
@@ -1176,9 +1701,9 @@ class DEMSolver:
     # output
     # ------------------------------------------------------------------
     def WriteMeshFile(self, path):
-        """Every mesh in the user frame, in one legacy-VTK file: facet
-        normals from the source file where the mesh uses them, else from
-        the winding."""
+        """Every mesh in the user frame, in one legacy-VTK file (or OBJ,
+        ``SetMeshOutputFormat("obj")``): facet normals from the source
+        file where the mesh uses them, else from the winding."""
         if not self._meshes:
             return
         ids = [m.owner_id for m in self._meshes]
@@ -1208,9 +1733,10 @@ class DEMSolver:
             verts.append(vw)
             faces.append(f + off)
             off += len(v)
-        io_utils.write_mesh_vtk(path, np.concatenate(verts),
-                                np.concatenate(faces),
-                                normals=np.concatenate(nrms))
+        write = (io_utils.write_mesh_obj if self._mesh_out_format == "obj"
+                 else io_utils.write_mesh_vtk)
+        write(path, np.concatenate(verts), np.concatenate(faces),
+              normals=np.concatenate(nrms))
 
     def WriteSphereFile(self, path):
         st = self.state
@@ -1224,11 +1750,160 @@ class DEMSolver:
             path, pos[keep], _np(st.spheres.radius)[keep], owner=own[keep],
             absv=absv[keep], family=fams[keep], fmt=self._out_format)
 
+    def WriteClumpFile(self, path):
+        """One row per clump owner (families of DisableFamilyOutput left
+        out): x, y, z, clump_type, Qw..Qz, v_*, w_*, family, then absv
+        and a_* as SetOutputContent says. An unnamed template is written
+        as "type_<owner id>", as the JAX package writes it. The rows are
+        selected on the device and each column is copied once."""
+        st = self.state
+        oc = self._out_content
+        OC = defines.OutputContent
+        o = st.owners
+        rows = torch.arange(self._n_clump_owners, device=self.device)
+        if self._no_output_families:
+            fam = o.family[:self._n_clump_owners]
+            rows = rows[~torch.isin(fam, torch.as_tensor(
+                sorted(self._no_output_families), dtype=fam.dtype,
+                device=self.device))]
+        pos = decode_host(_np(o.vox[rows]), _np(o.loc[rows]),
+                          self._voxel_size) + self._lbf
+        vel = _np(o.vel[rows])
+        ids = _np(rows)
+        names = [t.name for t in self._owner_templates]
+        clump_type = np.asarray(
+            [names[t] or f"type_{i}"
+             for t, i in zip(self._owner_tmpl_idx[ids].tolist(),
+                             ids.tolist())], dtype=str)
+        extra = {}
+        if oc & OC.ABSV:
+            extra["absv"] = np.linalg.norm(vel, axis=1)
+        if oc & OC.ACC:
+            acc = _np(o.lin_acc[rows])
+            extra.update({"a_x": acc[:, 0], "a_y": acc[:, 1],
+                          "a_z": acc[:, 2]})
+        if oc & OC.OWNER_WILDCARD:
+            extra.update({k: _np(v[rows]) for k, v in o.wildcards.items()})
+        io_utils.write_clumps_csv(
+            path, pos, _np(o.quat[rows]), vel=vel, ang_vel=_np(o.omg[rows]),
+            family=_np(o.family[rows]), clump_type=clump_type, extra=extra,
+            fmt=self._out_format)
+
+    def WriteContactFile(self, path, force_thres: float = -1.0):
+        """Every live contact with |force| > force_thres: A, B,
+        contact_type (SS 1, ST 2, SA 11), then the point, force,
+        torque-only force and wildcards as SetContactOutputContent says;
+        SS rows, then ST, then SA. Runs the force pass's extras once
+        (kernel B-extras on the card); the threshold is applied on the
+        device, so only kept rows cross to the host."""
+        self._fill_contact_fields()
+        blocks = self._contact_blocks(force_thres)
+        if not blocks:
+            io_utils.write_contacts_csv(
+                path, np.zeros(0, int), np.zeros(0, int), np.zeros(0, int),
+                fmt=self._cnt_out_format)
+            return
+        CC = defines.ContactOutputContent
+        cc = self._cnt_out_content
+
+        def cat(key):
+            return np.concatenate([b[key] for b in blocks])
+
+        code = {"SS": 1, "ST": 2, "SA": 11}
+        wc = {k: np.concatenate([b["wildcards"][k] for b in blocks])
+              for k in blocks[0]["wildcards"]}
+        io_utils.write_contacts_csv(
+            path, cat("idA"), cat("idB"),
+            np.concatenate([np.full(len(b["idA"]), code[b["kind"]])
+                            for b in blocks]),
+            point=cat("point") if cc & CC.POINT else None,
+            force=cat("force") if cc & CC.FORCE else None,
+            torque=cat("torque_only") if cc & CC.TORQUE else None,
+            wildcards=wc if cc & CC.CNT_WILDCARD else None,
+            fmt=self._cnt_out_format)
+
+    def WriteContactFileIncludingPotentialPairs(self, path):
+        """The contact file with every live table row, the pairs within
+        the CD margin that carry no force yet included."""
+        self.WriteContactFile(path, force_thres=-1.0)
+
     def DisableFamilyOutput(self, family: int):
-        """Exclude a family from sphere file output."""
+        """Exclude a family from clump and sphere file output."""
         self._no_output_families.add(int(family))
 
     def _output_mask(self, fams):
         if not self._no_output_families:
             return np.ones(len(fams), bool)
         return ~np.isin(fams, sorted(self._no_output_families))
+
+    # readers of the files above
+    ReadClumpXyzFromCsv = staticmethod(io_utils.read_clump_xyz_from_csv)
+    ReadClumpQuatFromCsv = staticmethod(io_utils.read_clump_quat_from_csv)
+    ReadClumpVelFromCsv = staticmethod(io_utils.read_clump_vel_from_csv)
+    ReadClumpAngVelFromCsv = staticmethod(
+        io_utils.read_clump_ang_vel_from_csv)
+    ReadClumpFloat3FromCsv = staticmethod(
+        io_utils.read_clump_float3_from_csv)
+    ReadContactPairsFromCsv = staticmethod(
+        io_utils.read_contact_pairs_from_csv)
+    ReadContactWildcardsFromCsv = staticmethod(
+        io_utils.read_contact_wildcards_from_csv)
+
+    # ------------------------------------------------------------------
+    # inspectors and statistics
+    # ------------------------------------------------------------------
+    def CreateInspector(self, quantity: str, region=None) -> DEMInspector:
+        return DEMInspector(self, quantity, region)
+
+    def ShowTimingStats(self):
+        """The DoDynamics totals and the engine's chunk timers: refreshes
+        and steps timed by CUDA events on the card (the host clock on the
+        CPU), growths, shrinks and refresh retries; then the last
+        ProfileStageTimings table."""
+        t = self.engine.read_timers()
+        step_per = t["steps_s"] / t["steps_n"] * 1e3 if t["steps_n"] else 0.0
+        refresh_per = (t["refresh_s"] / t["refresh_n"] * 1e3
+                       if t["refresh_n"] else 0.0)
+        clock = "CUDA events" if self.device.type == "cuda" else "host clock"
+        print(
+            f"[timing] total wall {self._timers['total']:.3f}s over "
+            f"{self._n_steps_done} steps, {self._n_refreshes} CD refreshes\n"
+            f"  CD refresh        : {t['refresh_s']:8.3f}s"
+            f"  ({t['refresh_n']} refreshes, {refresh_per:.1f} ms each; "
+            f"{clock})\n"
+            f"  dynamics          : {t['steps_s']:8.3f}s"
+            f"  ({t['steps_n']} steps, {step_per:.3f} ms/step; {clock})\n"
+            f"  engine events     : grows={t['grows']} "
+            f"shrinks={t['shrinks']} retries={t['retries']} "
+            f"bin_factor={float(self.params.bin_factor):.2f}")
+        if self._stage_timings:
+            from .profiling import format_stages
+
+            print(format_stages(self._stage_timings))
+
+    def ProfileStageTimings(self, reps: int = 2):
+        """Time one refresh and one step of the current state at their
+        stage boundaries, `reps` times (``profiling.profile_stages``);
+        print the table and return {stage: ms}. The state is left as it
+        was."""
+        if not self._initialized:
+            raise RuntimeError("Initialize() first")
+        from .profiling import format_stages, profile_stages
+
+        stages = profile_stages(self.engine, self.state, self.params,
+                                self._update_freq, reps=reps)
+        self._stage_timings = stages
+        print(format_stages(stages))
+        return stages
+
+    def ClearTimingStats(self):
+        self._timers = {"total": 0.0}
+        self._n_steps_done = 0
+        self._n_refreshes = 0
+        self.engine.clear_timers()
+
+    def ShowAnomalies(self):
+        """Print and return the anomalies met so far (lost contacts)."""
+        for a in self._anomalies:
+            print("[anomaly]", a)
+        return list(self._anomalies)

@@ -31,11 +31,15 @@ from . import binning
 
 
 def find_pairs_ss(pos, reach, owner, family, family_mask, bin_size, nb,
-                  cap, member=None):
-    """Returns (idA, idB, count, table)."""
+                  cap, member=None, mark=None):
+    """Returns (idA, idB, count, table). `mark`, if given, is called with
+    "table" between the sorted table and the search (the stage timers of
+    ``profiling.profile_stages``)."""
     S = pos.shape[0]
     tab = binning.build_sphere_table(pos, reach, owner, family, bin_size,
                                      nb, max(S, 1), member=member)
+    if mark is not None:
+        mark("table")
     if not pos.is_cuda:
         pairs = binning.sweep_table(tab, S, family_mask, nb, cap,
                                     int(tab.max_occ))

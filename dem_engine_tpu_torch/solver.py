@@ -18,11 +18,21 @@ and re-runs the refresh from the retained pre-refresh state; nothing on
 this path updates a state tensor in place, so the retry is lossless.
 ``Engine.advance`` shrinks oversized tables after the refresh of its
 first, 64th and every 512th chunk (``maybe_shrink``).
+
+Timers: ``Engine.advance`` marks each chunk's refresh and its K steps
+with CUDA events on the card (the host clock on the CPU) and folds them
+into ``Engine.timers`` once they are complete: after the next chunk's
+refresh, which reads its overflow word anyway, or when the caller has
+synchronised (``read_timers``). The K-step window reads nothing back.
+``refresh_contacts`` and ``dynamics_step`` take an optional `mark`
+callable that they call with a name at their stage boundaries
+(``profiling.profile_stages``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
@@ -55,6 +65,27 @@ _CAP_OVF = (OVF_SS_CAP | OVF_ST_CAP | OVF_SA_CAP | OVF_TRI_BINS
 
 def _norm(v):
     return torch.linalg.vector_norm(v, dim=-1)
+
+
+def _no_mark(name):
+    pass
+
+
+def time_mark(device):
+    """A timer mark: a recorded CUDA event on the card, the host clock
+    on the CPU."""
+    if device.type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+    return time.perf_counter()
+
+
+def mark_seconds(a, b) -> float:
+    """Seconds between two complete marks of ``time_mark``."""
+    if isinstance(a, float):
+        return b - a
+    return a.elapsed_time(b) * 1e-3
 
 
 # ---------------------------------------------------------------------------
@@ -274,7 +305,12 @@ def st_pairs(state, params, cfg, q, tab):
 
 
 def refresh_contacts(state: SimState, params: RuntimeParams,
-                     cfg: SolverConfig) -> SimState:
+                     cfg: SolverConfig, mark=None) -> SimState:
+    """One refresh of the contact tables. `mark`, if given, is called
+    with "table", "pairs", "history" and "finalize" at the single-grid SS
+    search's stage boundaries (after the sorted table, kernel C, the
+    history carry and the SS table's finalize)."""
+    mark = mark or _no_mark
     vs = cfg.voxel_size
     owners, spheres, tris, anals = (state.owners, state.spheres,
                                     state.tris, state.anals)
@@ -294,11 +330,14 @@ def refresh_contacts(state: SimState, params: RuntimeParams,
     else:
         idA, idB, n_ss, tab = sweep.find_pairs_ss(
             q["pos_cd"], q["reach"], spheres.owner, sph_family,
-            params.family_mask, q["bin_size"], q["nb_cd"], cfg.cap_ss)
+            params.family_mask, q["bin_size"], q["nb_cd"], cfg.cap_ss,
+            mark=mark)
         overflow = torch.zeros((), dtype=I, device=dev)
+    mark("pairs")
     ss, lost_ss = history.carry_history(
         state.ss, idA, idB, torch.clamp(n_ss, max=cfg.cap_ss).to(I),
         wc_names)
+    mark("history")
     overflow |= torch.where(n_ss > cfg.cap_ss, OVF_SS_CAP, 0).to(I)
     ss = forces.finalize_table("ss", ss, owners, spheres, tris, anals,
                                params, cfg.force_model,
@@ -306,6 +345,7 @@ def refresh_contacts(state: SimState, params: RuntimeParams,
     if cfg.uniq_cap:
         overflow |= torch.where(ss.uniq_max > cfg.uniq_cap, OVF_UNIQ,
                                 0).to(I)
+    mark("finalize")
 
     st, lost_st = state.st, torch.zeros((), dtype=I, device=dev)
     if tris.n > 0:
@@ -360,12 +400,16 @@ def refresh_contacts(state: SimState, params: RuntimeParams,
 
 def dynamics_step(state: SimState, params: RuntimeParams,
                   cfg: SolverConfig, h: float | None = None,
-                  tables: PrescriptionTables | None = None) -> SimState:
+                  tables: PrescriptionTables | None = None,
+                  mark=None) -> SimState:
     """One step. `h` is params.h as a host float and `tables` the static
     prescription tables (``static_tables``); run_steps passes both once
     per chunk so a step reads nothing back from the device. The tables
     are evaluated at the step's start time, the family-change rules
-    applied to the owners that come out of the integrator."""
+    applied to the owners that come out of the integrator. `mark`, if
+    given, is called with "forces" after the contact passes and with
+    "reduced" after the ST and SA sums."""
+    mark = mark or _no_mark
     if h is None:
         h = float(params.h)
     if tables is None:
@@ -398,7 +442,9 @@ def dynamics_step(state: SimState, params: RuntimeParams,
             krec=krec)
         wide[kind] = p["table"]
         passes.append(p)
+    mark("forces")
     forces.reduce_wrench_segment(n, passes, out=acc)
+    mark("reduced")
 
     owners = integrator.integrate_owners(
         owners, f_acc, t_acc, params, tables.at(state.time),
@@ -436,6 +482,33 @@ class Engine:
         #: pair-search launch each)
         self.refresh_attempts = 0
         self.shrinks = 0
+        #: clearable statistics: seconds and counts of the chunks' timed
+        #: refreshes and steps, growths, shrinks and refresh retries
+        self.timers = self.zero_timers()
+        self._pending = []  # marks of chunks not yet folded in
+
+    @staticmethod
+    def zero_timers():
+        return {"refresh_s": 0.0, "refresh_n": 0, "steps_s": 0.0,
+                "steps_n": 0, "grows": 0, "shrinks": 0, "retries": 0}
+
+    def read_timers(self) -> dict:
+        """Fold every pending chunk's marks into ``timers``. On the card
+        this waits for the last chunk's end mark: no wait where the caller
+        has synchronised already, as DoDynamics and a refresh have."""
+        if self._pending and not isinstance(self._pending[-1][2], float):
+            self._pending[-1][2].synchronize()
+        for r0, s0, s1, kk in self._pending:
+            self.timers["refresh_s"] += mark_seconds(r0, s0)
+            self.timers["steps_s"] += mark_seconds(s0, s1)
+            self.timers["refresh_n"] += 1
+            self.timers["steps_n"] += kk
+        self._pending = []
+        return self.timers
+
+    def clear_timers(self):
+        self._pending = []
+        self.timers = self.zero_timers()
 
     def grow_for(self, state: SimState, ovf: int) -> SimState:
         """Grow the capacities named by the overflow bits. A unique-fetch
@@ -516,6 +589,7 @@ class Engine:
         if not changes:
             return state
         self.shrinks += 1
+        self.timers["shrinks"] += 1
         self.cfg = dataclasses.replace(cfg, **changes)
         return state.replace(ss=state.ss.shrunk(self.cfg.cap_ss),
                              st=state.st.shrunk(self.cfg.cap_st),
@@ -524,13 +598,16 @@ class Engine:
     def refresh(self, state: SimState, params: RuntimeParams) -> SimState:
         """Refresh with capacity growth, retried from the retained
         pre-refresh state."""
-        for _ in range(16):
+        for attempt in range(16):
             self.refresh_attempts += 1
+            if attempt:
+                self.timers["retries"] += 1
             new_state = refresh_contacts(state, params, self.cfg)
             ovf = int(new_state.overflow)
             if not ovf & _CAP_OVF:
                 self._check_vel(new_state, ovf)
                 return new_state
+            self.timers["grows"] += 1
             state = self.grow_for(state, ovf)
         raise RuntimeError("contact capacity growth did not converge")
 
@@ -538,19 +615,35 @@ class Engine:
                 n_steps: int, update_freq: int) -> SimState:
         """Run n_steps, refreshing the contact tables every update_freq
         steps (the last chunk may be shorter), and shrinking oversized
-        tables after the refresh of chunk 1, 64 and every 512th."""
+        tables after the refresh of chunk 1, 64 and every 512th. Each
+        chunk's refresh and steps are timed (module docstring)."""
+        h = float(params.h)
         done = 0
         chunks = 0
         while done < n_steps:
             kk = min(update_freq, n_steps - done)
             params_k = params.replace(
                 max_drift=torch.tensor(kk, dtype=I, device=state.device))
+            marks = [time_mark(state.device)]
             state = self.refresh(state, params_k)
+            # the refresh read its overflow word: earlier chunks' marks
+            # are complete
+            self.read_timers()
             chunks += 1
             if chunks in (1, 64) or chunks % 512 == 0:
                 state = self.maybe_shrink(state)
-            state = run_steps(state, params_k, self.cfg, kk)
+            state = self.timed_steps(state, params_k, kk, h, marks)
+            self._pending.append((*marks, kk))
             done += kk
+        return state
+
+    def timed_steps(self, state, params, n_steps, h, marks):
+        """A chunk's K-step window: `n_steps` steps between two timer
+        marks, appended to `marks`. Nothing in it reads back from the
+        device."""
+        marks.append(time_mark(state.device))
+        state = run_steps(state, params, self.cfg, n_steps, h=h)
+        marks.append(time_mark(state.device))
         return state
 
     @staticmethod

@@ -624,3 +624,86 @@ def test_families_solver_matches_cpu():
     np.testing.assert_array_equal(fg, fc)
     assert (fc == 3).any() and not vc[fc == 1].any()
     assert np.abs(vg - vc).max() <= 2e-4 * np.abs(vc).max()
+
+
+def test_read_side_matches_cpu(tmp_path):
+    """The read side of DEMSolver on the card against the CPU: 64 clumps
+    on a floor after 10 steps (Crr = 0). Every inspector quantity with no
+    region and a box, the contact file's rows (one B-extras launch) and
+    values, the clump file's types; ProfileStageTimings leaves the card's
+    state bit for bit; the K-step windows of DoDynamics raise nothing
+    under sync-debug "error" with the timers on."""
+    _need_card()
+    from dem_engine_tpu_torch import BoxRegion
+    from dem_engine_tpu_torch.ops import fused_force
+
+    quantities = [f"clump_{m}_{a}" for m in ("max", "min") for a in "xyz"] + [
+        "clump_max_absv", "clump_absv", "clump_kinetic_energy", "clump_mass",
+        "clump_volume", "clump_count"]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = DEMSolver(device=dev)
+        s.SetVerbosity("QUIET")
+        s.InstructBoxDomainDimension(0.1, 0.1, 0.1)
+        mat = s.LoadMaterial({"E": 1e7, "nu": 0.3, "CoR": 0.5, "mu": 0.4,
+                              "Crr": 0.0})
+        t = s.LoadSphereType(1e-3, 0.005, mat)
+        t.AssignName("ball")
+        g = np.stack(np.meshgrid(*[np.arange(4)] * 3, indexing="ij"),
+                     -1).reshape(-1, 3)
+        s.AddClumps(t, g * 0.0099 - 0.02)
+        s.AddBCPlane([0, 0, -0.026], [0, 0, 1], mat)
+        s.SetInitTimeStep(1e-5)
+        s.SetGravitationalAcceleration([0, 0, -9.81])
+        s.SetCDUpdateFreq(5)
+        s.Initialize()
+        s.DoDynamics(1e-4)
+        box = BoxRegion([-0.05, -0.05, -0.05], [0.0, 0.0, 0.0])
+        vals = {(q, r is None): s.CreateInspector(q, r).GetValue()
+                for q in quantities for r in (None, box)}
+        before = fused_force.hertz_extras_cuda.launches
+        s.WriteContactFile(str(tmp_path / f"{dev}.csv"))
+        extras = fused_force.hertz_extras_cuda.launches - before
+        s.WriteClumpFile(str(tmp_path / f"{dev}_clumps.csv"))
+        out[dev] = (s, vals, extras)
+    s, vals, extras = out["cuda"]
+    _, ref, extras_cpu = out["cpu"]
+    assert extras == 1 and extras_cpu == 0
+    vmax = np.abs(out["cpu"][0].GetOwnerVelocity()).max()
+    for key, r in ref.items():
+        g = vals[key]
+        if key[0] in ("clump_max_absv", "clump_absv"):
+            assert abs(g - r) <= 2e-4 * vmax, key
+        elif key[0] == "clump_count":
+            assert g == r > 0, key
+        elif key[0].startswith(("clump_max", "clump_min")):
+            assert abs(g - r) <= 1e-3 * s._voxel_size + 2e-7, key
+        else:
+            assert g == pytest.approx(r, rel=4e-4), key
+    gp, rp = (DEMSolver.ReadContactPairsFromCsv(str(tmp_path / f"{d}.csv"))
+              for d in ("cuda", "cpu"))
+    assert (sorted(zip(*(x.tolist() for x in gp)))
+            == sorted(zip(*(x.tolist() for x in rp))))
+    assert list(DEMSolver.ReadClumpXyzFromCsv(
+        str(tmp_path / "cuda_clumps.csv"))) == ["ball"]
+    kept = {f.name: getattr(s.state.owners, f.name).clone()
+            for f in dataclasses.fields(s.state.owners)
+            if isinstance(getattr(s.state.owners, f.name), torch.Tensor)}
+    stages = s.ProfileStageTimings(reps=2)
+    assert all(np.isfinite(v) and v >= 0 for v in stages.values())
+    for name, t in kept.items():
+        assert torch.equal(t, getattr(s.state.owners, name)), name
+    timed_steps = s.engine.timed_steps
+
+    def guarded(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return timed_steps(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    s.engine.timed_steps = guarded
+    s.ClearTimingStats()
+    s.DoDynamics(1e-4)
+    t = s.engine.read_timers()
+    assert (t["refresh_n"], t["steps_n"]) == (2, 10) and t["steps_s"] > 0
