@@ -94,6 +94,34 @@ Phases, each printing its own numbers; any failure exits nonzero:
                output phase, the device time of B-extras in a query on
                the API's table and the launches of a step of DoDynamics'
                K-step window with the timers on
+  12 custom    configuration (a), the cohesive bed: DEMSolver on the API's
+               mono lattice with a custom force model (Hertz-Mindlin plus
+               cohesion 50, scaled by the owner wildcard coh_scale, 0 on
+               an eighth of the clumps by SetFamilyOwnerWildcardValue,
+               and the geometry wildcard stick), Crr = 0: contact_pass on
+               the SS table every step, one warm-up chunk, 250 timed
+               steps, launch counts (A twice a step, no B), memory,
+               physics, the friction history live on the SS rows; kernel
+               A on the contact_pass SS records against its plain
+               version; the built-in Hertz model through contact_pass
+               against kernel B on the settled table, per contact and per
+               owner
+  13 bonded    configuration (b), the bonded block: side^3 single spheres
+               (side the cube root of --clumps: 64) in two AddClumps
+               batches on a floor, the bond model,
+               MarkFamilyPersistentContact(0), a dry run and
+               SetContactWildcardValueAll: 774,144 bonds; the restart
+               round trip (the contact file in npz, SetExistingContacts
+               on a fresh solver, whose dry run carries every bond); the
+               top batch moved up by 4 R with SetOwnerPosition, kernel C
+               on the moved block (identical to the plain sweep) finding
+               none of the 4,096 cut bonds; 250 steps in chunks of K:
+               each refresh re-injects exactly the cut rows, ss.count
+               unchanged; launch counts, memory, physics; kernel A on the
+               last step's SS (re-injected rows included) and SA
+               contact_pass records against its plain version. Both have
+               breakdowns, and (a) A's device time on its SS records,
+               with the profiled parts at the end
 With every phase run, the line before the last holds the kernels' JSON
 record and the one before it the card's name and power limit; the last
 line is the JSON verdict.
@@ -2070,6 +2098,489 @@ def phase_output_device(torch, n_clumps, k, reps=5):
     torch.cuda.empty_cache()
 
 
+# the cohesive bed: the API's mono lattice with the cohesion model of
+# cases.cohesion_model at examples/cohesion_pile.py's default Cohesion,
+# rolling resistance off (it parts any two implementations on a bed), an
+# eighth of the clumps in family 1 whose coh_scale is 0
+COHESION = 50.0
+
+
+def custom_solver(n_clumps, k, device=None):
+    """DEMSolver on the API's mono lattice with a custom force model:
+    Hertz-Mindlin plus cohesion scaled by the owner wildcard `coh_scale`
+    (AddOwnerWildcard 1.0; SetFamilyOwnerWildcardValue 0 on family 1,
+    every eighth clump) and the geometry wildcard `stick`
+    (AddGeometryWildcard 1.0)."""
+    from dem_engine_tpu_torch import DEMSolver
+    from dem_engine_tpu_torch.cases import R, bed_geometry, cohesion_model
+
+    geo = bed_geometry(n_clumps)
+    dims = geo["dims"]
+    s = DEMSolver(device=device or DEVICE)
+    s.SetVerbosity("WARNING")
+    s.InstructBoxDomainDimension(*dims)
+    mat = s.LoadMaterial({"E": 1e9, "nu": 0.3, "CoR": 0.5, "mu": 0.4,
+                          "Crr": 0.0, "Cohesion": COHESION})
+    s.DefineContactForceModel(cohesion_model())
+    tmpl = s.LoadClumpType(geo["mass"], geo["moi"], [R] * 3, geo["rel"], mat)
+    b = s.AddClumps(tmpl, geo["pos"] - dims / 2)
+    b.SetFamilies(np.where(np.arange(b.n) % 8 == 0, 1, 0))
+    b.AddOwnerWildcard("coh_scale", 1.0)
+    b.AddGeometryWildcard("stick", np.ones(b.n))
+    s.AddBCPlane([0, 0, -dims[2] / 2 + 2 * R], [0, 0, 1], mat)
+    s.SetInitTimeStep(API_H)
+    s.SetGravitationalAcceleration([0, 0, -9.81])
+    s.SetCDUpdateFreq(k)
+    s.Initialize()
+    s.SetFamilyOwnerWildcardValue(1, "coh_scale", 0.0)
+    return s
+
+
+def table_pass(s, kind):
+    """contact_pass on one of the solver's tables at its current state,
+    as a step runs it."""
+    from dem_engine_tpu_torch.ops import forces
+
+    st, cfg = s.state, s.engine.cfg
+    return forces.contact_pass(kind, getattr(st, kind), st.owners,
+                               st.spheres, st.tris, st.anals, s.params,
+                               st.time, cfg.voxel_size, cfg.force_model,
+                               krec=forces.pack_kinematics(st.owners))
+
+
+def pass_A(torch, s, tag, kinds=("ss",)):
+    """Kernel A on a custom path's contact_pass records (not kernel B's),
+    table by table: against the float64 sum and its plain version;
+    events, plain, index_add_ and the bound. Returns the first table's
+    record."""
+    from dem_engine_tpu_torch.ops import segred
+
+    n = s.state.owners.n
+    recs = []
+    for kind in kinds:
+        p = table_pass(s, kind)
+        t = p["table"]
+        args = (p["rec_a"], t.own_a, p["rec_b"], t.own_b_sorted, t.perm_b)
+        sides = ((p["rec_a"], t.own_a, None),
+                 (p["rec_b"], t.own_b_sorted, t.perm_b))
+        exact = sum(segred.seg_sum_plain(r.double(), i, n, perm=pm)
+                    for r, i, pm in sides)
+        got = segred.seg_sum_pair(*args, n)
+        plain = sum(segred.seg_sum_plain(r, i, n, perm=pm)
+                    for r, i, pm in sides)
+        err = float((got.double() - exact).abs().max()) / max(
+            float(exact.abs().max()), 1e-30)
+        abs_err = float((got - plain).abs().max())
+        lib = [index_add_call(torch, r, i, n, pm) for r, i, pm in sides]
+        ms = cuda_ms(torch, lambda: segred.seg_sum_pair(*args, n))
+        pms = cuda_ms(torch, lambda: [segred.seg_sum_plain(r, i, n, perm=pm)
+                                      for r, i, pm in sides])
+        lms = cuda_ms(torch, lambda: [c() for c in lib])
+        moved = [bytes_A(i, n, pm) for _, i, pm in sides]
+        bnd = bound(sum(m[0] for m in moved) + n * 24,
+                    sum(m[1] for m in moved))
+        print(f"[{tag}] A on the contact_pass {kind.upper()} table (rows "
+              f"{t.cap}, live {int(t.count)}): error against the float64 "
+              f"sum {err:.2e} (tol 1e-5), max abs err against the plain "
+              f"version {abs_err:.3e}; kernel {ms:.3f} ms by events, plain "
+              f"{pms:.3f} ms, index_add_ {lms:.3f} ms, bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+        if not err <= 1e-5:
+            fail(f"kernel A disagrees with its plain version on the {tag} "
+                 f"path's {kind.upper()} table")
+        recs.append(dict(max_abs_err=abs_err, ms=ms, plain_ms=pms,
+                         bound=bnd, library_ms=lms))
+    return recs[0]
+
+
+def hertz_cross_check(torch, s):
+    """The built-in Hertz model through contact_pass (its fused variant
+    dropped by SetPerContactWildcards) against kernel B, on the solver's
+    settled SS table (Crr = 0). Per contact (force and torque of both
+    sides, relative to the largest): contact_pass within 1e-5 of B's
+    plain version (the same f32 operations in torch), and kernel B no
+    farther than twice contact_pass's distance from B's plain version
+    evaluated in float64 (the overlap, a difference of two numbers ~200
+    times larger, leaves any f32 evaluation ~1e-4 of the largest force
+    from the exact one, and B's FMAs round apart from torch's). Per owner,
+    the wrench within kernel B's tolerance, 2e-4 of the largest; the
+    owner sums' distance from the float64 sums is printed beside it."""
+    from dem_engine_tpu_torch.models import HertzianForceModel
+    from dem_engine_tpu_torch.ops import forces, segred
+    from dem_engine_tpu_torch.ops.fused_force import (_wc_names, hertz_rows,
+                                                      hertz_rows_cuda)
+
+    st, cfg = s.state, s.engine.cfg
+    n, h = st.owners.n, float(s.params.h)
+    fused, plain = HertzianForceModel(), HertzianForceModel()
+    plain.SetPerContactWildcards(fused.contact_wildcards)
+    geo = (st.owners, st.spheres, st.tris, st.anals, s.params)
+    t_f = forces.finalize_table("ss", st.ss, *geo, fused)
+    t_p = forces.finalize_table("ss", st.ss, *geo, plain)
+    krec_w = forces.pack_kinematics(st.owners, True)
+    reset_counts()
+    b_rows = hertz_rows_cuda(t_f, krec_w, h, cfg.voxel_size, fused)[:2]
+    b_runs = read_counts()["B"]
+    p = forces.contact_pass("ss", t_p, *geo[:4], s.params, st.time,
+                            cfg.voxel_size, plain)
+    live = t_p.idA >= 0
+    oa, ob = (torch.where(live, o, 0).long() for o in (t_f.own_a,
+                                                       t_f.own_b))
+    wc = torch.stack([t_f.wildcards[k] for k in _wc_names(t_f, fused)])
+    rows = {"kernel": b_rows, "pass": (p["rec_a"], p["rec_b"]),
+            "plain": hertz_rows(t_f.fstat_a, wc, krec_w[oa], krec_w[ob],
+                                h, cfg.voxel_size, True)[:2],
+            "f64": hertz_rows(t_f.fstat_a.double(), wc.double(),
+                              krec_w[oa].double(), krec_w[ob].double(), h,
+                              cfg.voxel_size, True)[:2]}
+
+    def per_contact(ref, got):
+        e = 0.0
+        for r, g in zip(rows[ref], rows[got]):
+            for part in (slice(0, 3), slice(3, 6)):
+                r_, g_ = r[live, part].double(), g[live, part].double()
+                e = max(e, float((g_ - r_).abs().max()
+                                 / r_.abs().max().clamp_min(1e-30)))
+        return e
+
+    def owner_sums(key):
+        a, b = rows[key]
+        return (segred.seg_sum_plain(a.double(), t_f.own_a, n)
+                + segred.seg_sum_plain(b.double(), t_f.own_b_sorted, n,
+                                       perm=t_f.perm_b))
+
+    errs = {k: per_contact(*k.split("/")) for k in (
+        "plain/pass", "pass/kernel", "f64/kernel", "f64/pass")}
+    sums = {k: owner_sums(k) for k in ("kernel", "pass", "f64")}
+    own = {f"{ref}/{got} {q}": rel_err(sums[ref][:, part].cpu(),
+                                      sums[got][:, part].cpu())
+           for ref, got in (("kernel", "pass"), ("f64", "kernel"),
+                            ("f64", "pass"))
+           for q, part in (("force", slice(0, 3)),
+                           ("torque", slice(3, 6)))}
+    del rows, sums
+    print(f"[custom] built-in Hertz through contact_pass against kernel B "
+          f"on the settled table ({int(t_f.count)} live rows, B launched "
+          f"{b_runs}): per contact, against B's plain version "
+          f"{errs['plain/pass']:.2e} (tol 1e-5); kernel B against it "
+          f"{errs['pass/kernel']:.2e}; against the float64 evaluation "
+          f"kernel B {errs['f64/kernel']:.2e}, contact_pass "
+          f"{errs['f64/pass']:.2e} (kernel B's at most twice "
+          f"contact_pass's); per owner "
+          + ", ".join(f"{k} {v:.2e}" for k, v in own.items())
+          + " (kernel/pass tol 2e-4)", flush=True)
+    if not (b_runs == 1 and errs["plain/pass"] <= 1e-5
+            and errs["f64/kernel"] <= 2 * errs["f64/pass"]
+            and own["kernel/pass force"] <= 2e-4
+            and own["kernel/pass torque"] <= 2e-4):
+        fail("Hertz through contact_pass disagrees with kernel B")
+
+
+def phase_custom(torch, n_clumps, k, steps):
+    """Configuration (a), the cohesive bed, through DEMSolver: one warm-up
+    chunk, then `steps` timed steps of DoDynamics; launch counts (A twice
+    a step: SS and SA; no B), memory, physics, friction history live on
+    the SS table, the tagged family's coh_scale; then A on the custom SS
+    records and the Hertz cross-check. Returns A's record."""
+    h = API_H
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    s = custom_solver(n_clumps, k)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    s.DoDynamics(k * h)
+    attempts0 = s.engine.refresh_attempts
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    s.DoDynamics(steps * h)
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    refreshes = s.engine.refresh_attempts - attempts0
+    mem = torch.cuda.max_memory_allocated()
+    st, cfg = s.state, s.engine.cfg
+    print(f"[custom] {s.GetNumClumps()} clumps, cohesion model "
+          f"({cfg.force_model.name}, fused variant "
+          f"{cfg.force_model.fused_variant}), K={k}, {steps} steps after "
+          f"a {k}-step warm-up (Initialize {t_init:.2f} s): "
+          f"{dt * 1e3 / steps:.3f} ms/step, {n_clumps * steps / dt:.4g} "
+          f"clump-steps/s; peak memory {mem / 2**30:.2f} GiB; ss.count "
+          f"{int(st.ss.count)} (cap {cfg.cap_ss}) sa.count "
+          f"{int(st.sa.count)} (cap {cfg.cap_sa})", flush=True)
+    expect = {"A": 2 * steps, "B": 0, "B-extras": 0, "B-ub": 0,
+              "C": refreshes, "D": 0, "lists": 0}
+    print(f"[custom] launches {launches}, expected {expect} ({refreshes} "
+          f"refresh attempts)", flush=True)
+    if launches != expect or refreshes < steps // k:
+        fail("launch counts do not match the custom path")
+    physics(torch, st, cfg.voxel_size, "custom")
+    n = int(st.ss.count)
+    share = {name: float((st.ss.wildcards[name][:n] != 0).float().mean())
+             for name in cfg.force_model.contact_wildcards}
+    tagged = s.GetFamilyOwnerWildcardValue(1, "coh_scale")
+    rest = s.GetFamilyOwnerWildcardValue(0, "coh_scale")
+    print(f"[custom] share of live SS rows with a nonzero wildcard: "
+          + ", ".join(f"{kk} {v:.3f}" for kk, v in share.items())
+          + f"; family 1: {len(tagged)} clumps with coh_scale "
+          f"{sorted(set(tagged.tolist()))}, family 0: {len(rest)} with "
+          f"{sorted(set(rest.tolist()))}", flush=True)
+    if not (all(v > 0.5 for v in share.values())
+            and len(tagged) == n_clumps // 8 and not tagged.any()
+            and bool((rest == 1.0).all())):
+        fail("the custom path's wildcards are not what it set")
+    rec = pass_A(torch, s, "custom")
+    rec["launches"] = launches["A"]
+    hertz_cross_check(torch, s)
+    del s, st
+    torch.cuda.empty_cache()
+    return rec
+
+
+# the bonded block: a side^3 lattice of single spheres (side the cube
+# root of --clumps: 64 at full size) at pitch 1.98 BOND_R on a floor, built
+# as two AddClumps batches (bottom and top halves of the layers)
+BOND_R = 0.01
+BOND_H = 1e-5
+
+
+def bond_side(n_clumps):
+    return int(round(n_clumps ** (1 / 3)))
+
+
+def bonded_solver(side, k, existing=None):
+    """DEMSolver with the bond model of cases.bond_model on a side^3
+    block whose bottom layer rests on the floor; MarkFamilyPersistentContact
+    (0) and a dry run bond it, and every row gets `unbroken` 1.0.
+    `existing` = (idA, idB, wildcards) seeds the SS table through the
+    first batch instead (SetExistingContacts: the first batch's sphere ids
+    are global). Returns (solver, bottom batch, top batch, clump centres,
+    floor height above the domain's lower corner)."""
+    from dem_engine_tpu_torch import DEMSolver
+    from dem_engine_tpu_torch.cases import bond_model
+
+    r = BOND_R
+    pitch = 1.98 * r
+    dims = np.asarray([side * pitch + 20 * r, side * pitch + 20 * r,
+                       side * pitch + 40 * r])
+    lbf = -dims / 2
+    s = DEMSolver(device=DEVICE)
+    s.SetVerbosity("WARNING")
+    s.InstructBoxDomainDimension(*dims)
+    mat = s.LoadMaterial({"E": 1e8, "nu": 0.3, "CoR": 0.3, "mu": 0.4,
+                          "Crr": 0.0})
+    s.DefineContactForceModel(bond_model())
+    tmpl = s.LoadSphereType(2600 * 4 / 3 * np.pi * r**3, r, mat)
+    # x fastest, z slowest: the bottom half of the layers comes first
+    g = np.mgrid[0:side, 0:side, 0:side].reshape(3, -1).T[:, ::-1]
+    # the bottom layer 1 % of a radius into the floor: the SA rows are
+    # bonds too
+    floor = 2 * r
+    pos = lbf + g * pitch + [10 * r, 10 * r, floor + 0.99 * r]
+    half = side * side * (side // 2)
+    bottom = s.AddClumps(tmpl, pos[:half])
+    top = s.AddClumps(tmpl, pos[half:])
+    if existing is not None:
+        bottom.SetExistingContacts({"idA": existing[0], "idB": existing[1]})
+        bottom.SetExistingContactWildcards(existing[2])
+    s.AddBCPlane([0, 0, lbf[2] + floor], [0, 0, 1], mat)
+    s.MarkFamilyPersistentContact(0)
+    s.SetInitTimeStep(BOND_H)
+    s.SetGravitationalAcceleration([0, 0, -9.81])
+    s.SetCDUpdateFreq(k)
+    s.Initialize(dry_run=True)
+    if existing is None:
+        s.SetContactWildcardValueAll("unbroken", 1.0)
+    return s, bottom, top, pos, floor
+
+
+def cut_block(s, top, pos):
+    """The top batch moved up by 4 BOND_R in one SetOwnerPosition: the
+    bonds across the cut are no longer detected."""
+    s.SetOwnerPosition(np.arange(top.owner_offset, top.owner_offset + top.n),
+                       pos[-top.n:] + [0.0, 0.0, 4 * BOND_R])
+
+
+def ss_keys(torch, t, n_spheres):
+    """Sorted int64 keys idA * S + idB of a table's live rows."""
+    live = t.idA >= 0
+    return torch.sort(t.idA[live].long() * n_spheres
+                      + t.idB[live].long()).values
+
+
+def bonded_restart(torch, s, side, k, d):
+    """The restart round trip: the contact file (npz) with `unbroken`,
+    read back with np.load, given to a fresh solver by SetExistingContacts
+    and SetExistingContactWildcards; its dry run must carry every bond."""
+    path = os.path.join(d, "bonds.npz")
+    s.SetContactOutputFormat("binary")
+    t0 = time.perf_counter()
+    s.WriteContactFile(path)
+    t_w = time.perf_counter() - t0
+    f = np.load(path)
+    ss = f["contact_type"] == 1
+    pairs = (f["A"][ss], f["B"][ss], {"unbroken": f["unbroken"][ss]})
+    S = s.state.spheres.n
+    t0 = time.perf_counter()
+    fresh = bonded_solver(side, k, existing=pairs)[0]
+    torch.cuda.synchronize()
+    t_r = time.perf_counter() - t0
+    t = fresh.state.ss
+    n = int(t.count)
+    unb = t.wildcards["unbroken"][:n]
+    want = torch.sort(torch.as_tensor(pairs[0], device=DEVICE).long() * S
+                      + torch.as_tensor(pairs[1], device=DEVICE).long()
+                      ).values
+    same = bool(torch.equal(ss_keys(torch, t, S), want))
+    carried = int((unb == 1.0).sum())
+    print(f"[bonded] restart: contact file {os.path.getsize(path)} bytes "
+          f"in {t_w:.2f} s, {int(ss.sum())} SS rows with `unbroken` "
+          f"{sorted(set(pairs[2]['unbroken'].tolist()))}; the fresh "
+          f"solver's dry run ({t_r:.2f} s): ss.count {n}, the file's pair "
+          f"set {same}, rows carrying unbroken 1.0: {carried}",
+          flush=True)
+    if not (same and carried == n == int(ss.sum())):
+        fail("the restart did not carry every bond")
+    del fresh
+
+
+def phase_bonded(torch, side, k, steps):
+    """Configuration (b), the bonded block, through DEMSolver: bonds at a
+    dry run (SetContactWildcardValueAll("unbroken", 1.0)); the restart
+    round trip; the top batch moved up by 4 R in one SetOwnerPosition;
+    kernel C's search on the moved block, identical to the plain sweep's,
+    finds none of the cross-cut bonds and its list is front-compacted;
+    then `steps` steps of DoDynamics in chunks of K: each refresh
+    re-injects exactly the cross-cut rows, ss.count unchanged; launch
+    counts, memory, physics; and kernel A on the contact_pass records of
+    the SS table that holds the re-injected rows and of the SA table."""
+    import tempfile
+
+    from dem_engine_tpu_torch.ops import binning, sweep
+    from dem_engine_tpu_torch.solver import ss_search_inputs
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    s, bottom, top, pos, floor = bonded_solver(side, k)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    st = s.state
+    S, nb = st.spheres.n, bottom.n
+    n_bonds = int(st.ss.count)
+    expect_bonds = 3 * side**2 * (side - 1)
+    live = st.ss.idA >= 0
+    cross = live & ((st.ss.idA < nb) != (st.ss.idB < nb))
+    n_cross = int(cross.sum())
+    cut_keys = torch.sort(st.ss.idA[cross].long() * S
+                          + st.ss.idB[cross].long()).values
+    print(f"[bonded] {S} spheres in two batches ({nb} + {top.n}), "
+          f"Initialize with its dry run {t_init:.2f} s: {n_bonds} SS "
+          f"bonds (3*{side}^2*{side - 1} = {expect_bonds}), "
+          f"{int(st.sa.count)} on the floor, {n_cross} across the cut",
+          flush=True)
+    if not (n_bonds == expect_bonds and n_cross == side**2
+            and int(st.sa.count) == side**2):
+        fail("the bonded block does not hold its lattice's bonds")
+    with tempfile.TemporaryDirectory() as d:
+        bonded_restart(torch, s, side, k, d)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cut_block(s, top, pos)
+    torch.cuda.synchronize()
+    t_set = time.perf_counter() - t0
+    cfg = s.engine.cfg
+    params_k = s.params.replace(max_drift=torch.tensor(
+        k, dtype=torch.int32, device=DEVICE))
+    q = ss_search_inputs(s.state, params_k, cfg.voxel_size)
+    fa, fb, n_det, tab = sweep.find_pairs_ss(
+        q["pos_cd"], q["reach"], q["owner"], q["family"], q["family_mask"],
+        q["bin_size"], q["nb_cd"], cfg.cap_ss)
+    pa, pb, pn = binning.sweep_table(tab, S, q["family_mask"], q["nb_cd"],
+                                     cfg.cap_ss, int(tab.max_occ))
+    same = (int(pn) == int(n_det) and torch.equal(fa, pa)
+            and torch.equal(fb, pb))
+    n_det = int(n_det)
+    compact = bool((fa[:n_det] >= 0).all() and (fa[n_det:] == -1).all())
+    found = fa[:n_det].long() * S + fb[:n_det].long()
+    redetected = int(torch.isin(found, cut_keys).sum())
+    print(f"[bonded] SetOwnerPosition of {top.n} owners {t_set * 1e3:.1f} "
+          f"ms; kernel C on the moved block: {n_det} pairs (bonds less "
+          f"the cut: {n_bonds - n_cross}), identical to the plain sweep's "
+          f"table and count {same} (plain {int(pn)}), {redetected} of the "
+          f"cut bonds found, list front-compacted {compact}", flush=True)
+    if not same:
+        fail("kernel C's pair table on the cut block differs from the "
+             "plain sweep")
+    if not (n_det == n_bonds - n_cross and redetected == 0 and compact):
+        fail("the cut block's pair search is not what the cut implies")
+    del q, fa, fb, pa, pb, tab, found
+
+    chunks = steps // k
+    attempts0 = s.engine.refresh_attempts
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    dt, counts, reinjected = 0.0, [], []
+    for _ in range(chunks):
+        t0 = time.perf_counter()
+        s.DoDynamics(k * BOND_H)  # synchronises before it returns
+        dt += time.perf_counter() - t0
+        t = s.state.ss
+        counts.append(int(t.count))
+        keys = t.idA.long() * S + t.idB.long()
+        reinjected.append(int(((t.idA >= 0) & torch.isin(keys, cut_keys)
+                               ).sum()))
+    launches = read_counts()
+    refreshes = s.engine.refresh_attempts - attempts0
+    mem = torch.cuda.max_memory_allocated()
+    st = s.state
+    n = int(st.ss.count)
+    unb = st.ss.wildcards["unbroken"][:n]
+    keys = st.ss.idA[:n].long() * S + st.ss.idB[:n].long()
+    cut_rows = torch.isin(keys, cut_keys)
+    persist_all = bool((st.ss.persist[:n] == 1).all())
+    print(f"[bonded] {steps} steps at K={k} in {chunks} DoDynamics chunks: "
+          f"{dt * 1e3 / (chunks * k):.3f} ms/step; peak memory "
+          f"{mem / 2**30:.2f} GiB; ss.count per refresh {counts} (before "
+          f"the cut {n_bonds}); re-injected (cross-cut) rows per refresh "
+          f"{reinjected}; bonds intact {int((unb > 0.5).sum())} of {n}, "
+          f"cut rows broken {int((unb[cut_rows] == 0).sum())} of "
+          f"{int(cut_rows.sum())}; every row persistent {persist_all}",
+          flush=True)
+    expect = {"A": 2 * chunks * k, "B": 0, "B-extras": 0, "B-ub": 0,
+              "C": refreshes, "D": 0, "lists": 0}
+    print(f"[bonded] launches {launches}, expected {expect} ({refreshes} "
+          f"refresh attempts)", flush=True)
+    if launches != expect or refreshes < chunks:
+        fail("launch counts do not match the bonded path")
+    if not (all(c == n_bonds for c in counts)
+            and all(r == n_cross for r in reinjected) and persist_all
+            and int((unb[cut_rows] == 0).sum()) == n_cross):
+        fail("the bonded block's re-injection is not exact")
+    physics(torch, st, cfg.voxel_size, "bonded", floor=floor)
+    print(f"[bonded] kernel A on the last step's tables, the SS table "
+          f"holding {int(cut_rows.sum())} re-injected rows:", flush=True)
+    pass_A(torch, s, "bonded", ("ss", "sa"))
+    del s, st
+    torch.cuda.empty_cache()
+
+
+def custom_device(torch, s, reps=10):
+    """Kernel A's device time on the custom path's SS records of solver
+    `s` (torch.profiler; one pair call: a zeroing and one launch)."""
+    from dem_engine_tpu_torch.ops import segred
+
+    p = table_pass(s, "ss")
+    t, n = p["table"], s.state.owners.n
+    rows, totals = profiled_calls(
+        torch, lambda: segred.seg_sum_pair(p["rec_a"], t.own_a, p["rec_b"],
+                                           t.own_b_sorted, t.perm_b, n),
+        reps, 2, "A on the custom path's SS table")
+    dev = sum(r[0] for r in rows)
+    print(f"[custom device] A on the contact_pass SS table: {dev:.4f} ms "
+          f"in {sum(r[1] for r in rows):g} launches", flush=True)
+    return dev
+
+
 KERNELS = {
     "A": ("segment_sum", "dem_engine_tpu_torch/csrc/segred.cu",
           "dem_engine_tpu/ops/pallas_segred.py:165"),
@@ -2089,7 +2600,7 @@ KERNELS = {
               "dem_engine_tpu/ops/forces.py:165 _uniq_layout"),
 }
 PHASES = ("kernels", "parity", "main", "poly", "breakdown", "api",
-          "families", "uniq", "output")
+          "families", "uniq", "output", "custom", "bonded")
 
 
 def main():
@@ -2133,6 +2644,10 @@ def main():
         phase_families(torch, args.clumps, args.k, args.steps)
     if "output" in phases:
         phase_output(torch, args.clumps, args.k, args.steps)
+    if "custom" in phases:
+        phase_custom(torch, args.clumps, args.k, args.steps)
+    if "bonded" in phases:
+        phase_bonded(torch, bond_side(args.clumps), args.k, args.steps)
     # torch.profiler only from here on, so that no timed run follows a
     # profile in its process; the breakdowns settle their beds anew, so
     # no timed run shares the card's memory with them either
@@ -2171,6 +2686,23 @@ def main():
         s.DoDynamics(args.k * API_H)
         phase_breakdown(torch, s.engine, s.state, s.params, args.k,
                         tag="families breakdown")
+        del s
+    if "custom" in phases:
+        torch.cuda.empty_cache()
+        s = custom_solver(args.clumps, args.k)
+        s.DoDynamics(args.k * API_H)
+        if "breakdown" in phases:
+            phase_breakdown(torch, s.engine, s.state, s.params, args.k,
+                            tag="custom breakdown")
+        custom_device(torch, s)
+        del s
+    if "breakdown" in phases and "bonded" in phases:
+        torch.cuda.empty_cache()
+        s, _, top, pos, _ = bonded_solver(bond_side(args.clumps), args.k)
+        cut_block(s, top, pos)
+        s.DoDynamics(args.k * BOND_H)
+        phase_breakdown(torch, s.engine, s.state, s.params, args.k,
+                        tag="bonded breakdown")
         del s
     if "output" in phases:
         phase_output_device(torch, args.clumps, args.k)

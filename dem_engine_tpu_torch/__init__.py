@@ -3,7 +3,8 @@ kernels for NVIDIA Hopper.
 
 A port of ``dem_engine_tpu`` (JAX), which stays the reference. Users
 drive it through ``DEMSolver`` (clumps of spheres on analytical
-boundaries and triangle meshes, the built-in Hertz models, family
+boundaries and triangle meshes, the built-in Hertz models and custom
+force models with wildcards, persistent and restart contacts, family
 prescriptions and rules, contact detection every K steps; inspectors,
 clump and contact files, stage timing),
 which runs ``solver.Engine.advance``. On a CUDA device its kernels

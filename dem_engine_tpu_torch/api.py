@@ -37,7 +37,9 @@ Typical use:
 On a CUDA device the step runs kernels B and A (once per table: SS, ST,
 SA), each refresh kernel C (twice, on member tables, in two-class mode),
 and the contact queries and contact files run kernel B with its extras
-outputs, once per call. Unique
+outputs, once per call. With a custom force model the SS table runs
+``contact_pass`` instead of kernel B, and its queries read the fields
+of the last step's pass. Unique
 fetch (kernel B-ub and its lists launch at each refresh) is off by
 default on the card: it did not beat kernel B on the H100, whose L2
 already serves B's gathers.
@@ -74,7 +76,8 @@ from .initializer import (
     make_triangles,
     resolve_device,
 )
-from .models import HertzianForceModel
+from .models import HertzianForceModel, HertzianFrictionlessForceModel
+from .models.force_model import ForceModel
 from .models.prescriptions import (
     Components,
     Const,
@@ -87,6 +90,7 @@ from .ops import binning, forces, quat
 from .ops.fused_force import fused_step_ss
 from .ops.voxel import choose_voxel_size, decode_host, encode_host
 from .solver import Engine, sphere_pos_margins, sphere_world_pos
+from .initializer import empty_ss_table
 from .state import SolverConfig
 from .structs import (
     DEMClumpBatch,
@@ -236,6 +240,25 @@ class DEMTracker:
     def GetContactClumps(self, offset: int = 0):
         """Owner ids of the clumps in contact with this owner."""
         return self._s.GetOwnerContactClumps(self._oid(offset))
+
+    # --- wildcards of the tracked owners ---------------------------------
+    def SetOwnerWildcardValues(self, name: str, vals):
+        self._s.SetOwnerWildcardValue(name, vals, owner_ids=self.owner_ids)
+
+    def GetOwnerWildcardValues(self, name: str):
+        return self._s.GetOwnerWildcardValue(name, ids=self.owner_ids)
+
+    def SetGeometryWildcardValues(self, name: str, vals):
+        """Geometry wildcards of the spheres of the tracked owner(s)."""
+        self._s.SetGeometryWildcardValue(name, vals, geo_ids=self._geo_ids())
+
+    def GetGeometryWildcardValues(self, name: str):
+        return self._s.GetGeometryWildcardValue(name, ids=self._geo_ids())
+
+    def _geo_ids(self):
+        own = self._s.state.spheres.owner
+        ids = torch.as_tensor(self.owner_ids, device=own.device)
+        return _np(torch.nonzero(torch.isin(own.long(), ids))[:, 0])
 
     # --- reads of mass properties and accelerations ----------------------
     def Mass(self, offset: int = 0):
@@ -564,6 +587,7 @@ class DEMSolver:
         self._family_extra_margin = np.zeros(NUM_FAMILIES, np.float32)
         self._no_output_families: set = set()
         self._force_model = HertzianForceModel()
+        self._use_persistency = False
         self._bounding_bc = "none"
         self._bounding_bc_mat = None
         self._out_format = defines.OutputFormat.CSV
@@ -755,8 +779,7 @@ class DEMSolver:
         setattr(self, attr, (cur | flag) if on else (cur & ~flag))
 
     def EnableOwnerWildcardOutput(self, flag: bool = True):
-        """Owner wildcards in the clump file (columns once the state
-        carries owner wildcards)."""
+        """The force model's owner wildcards as clump-file columns."""
         self._set_flag("_out_content",
                        defines.OutputContent.OWNER_WILDCARD, flag)
 
@@ -765,8 +788,8 @@ class DEMSolver:
                        defines.ContactOutputContent.CNT_WILDCARD, flag)
 
     def EnableGeometryWildcardOutput(self, flag: bool = True):
-        """Geometry wildcards in the sphere file (columns once the state
-        carries them)."""
+        """The force model's geometry wildcards as sphere-file
+        columns."""
         self._set_flag("_out_content",
                        defines.OutputContent.GEO_WILDCARD, flag)
 
@@ -1014,6 +1037,41 @@ class DEMSolver:
                             device=self.device)] = int(family)
         self.state = self.state.replace(owners=owners.replace(family=fam))
 
+    def _set_owner_rows(self, ids, **fields):
+        """Owner fields at rows `ids`, each one indexed write on the
+        device."""
+        owners = self.state.owners
+        idx = torch.as_tensor(np.asarray(ids, np.int64).reshape(-1),
+                              device=self.device)
+        new = {}
+        for name, val in fields.items():
+            arr = getattr(owners, name).clone()
+            arr[idx] = torch.as_tensor(val, dtype=arr.dtype,
+                                       device=self.device)
+            new[name] = arr
+        self.state = self.state.replace(owners=owners.replace(**new))
+
+    def SetOwnerPosition(self, ids, pos):
+        """User-frame positions of the owners `ids` ((n, 3), or one row
+        for all): one encode on the host, one write on the device."""
+        n = np.asarray(ids).reshape(-1).shape[0]
+        p = np.broadcast_to(np.asarray(pos, np.float64), (n, 3))
+        vox, loc = encode_host(p - self._lbf, self._voxel_size)
+        self._set_owner_rows(ids, vox=vox, loc=loc)
+
+    def SetOwnerVelocity(self, ids, vel):
+        self._set_owner_rows(ids, vel=np.asarray(vel, np.float32))
+
+    def SetOwnerAngVel(self, ids, angvel):
+        """Body frame, as the tracker's SetAngVel."""
+        self._set_owner_rows(ids, omg=np.asarray(angvel, np.float32))
+
+    def SetOwnerOriQ(self, ids, oriq):
+        """(w, x, y, z), normalised."""
+        q = np.asarray(oriq, np.float32)
+        q = q / np.linalg.norm(q, axis=-1, keepdims=True)
+        self._set_owner_rows(ids, quat=q)
+
     def ChangeFamily(self, from_family: int, to_family: int):
         if not self._initialized:
             raise RuntimeError("ChangeFamily needs an initialized solver")
@@ -1066,6 +1124,261 @@ class DEMSolver:
         fam = st.owners.family[st.spheres.owner.long()]
         self.state = st.replace(spheres=st.spheres.replace(
             mat=torch.where(fam == family, mid, st.spheres.mat)))
+
+    # ------------------------------------------------------------------
+    # force models, wildcards and persistent contacts
+    # ------------------------------------------------------------------
+    def UseFrictionlessHertzianModel(self) -> ForceModel:
+        self._force_model = HertzianFrictionlessForceModel()
+        return self._force_model
+
+    def UseFrictionalHertzianModel(self) -> ForceModel:
+        self._force_model = HertzianForceModel()
+        return self._force_model
+
+    def DefineContactForceModel(self, model: ForceModel) -> ForceModel:
+        """Install a force model whose callable computes with torch
+        operations (module docstring). Call before Initialize."""
+        self._force_model = model
+        return model
+
+    def SetContactWildcards(self, names):
+        self._force_model.SetPerContactWildcards(tuple(names))
+
+    def SetOwnerWildcards(self, names):
+        self._force_model.SetPerOwnerWildcards(tuple(names))
+
+    def SetGeometryWildcards(self, names):
+        self._force_model.SetPerGeometryWildcards(tuple(names))
+
+    # Wildcard values live on the device: a setter is one write there, a
+    # getter one copy to the host.
+    def _tables(self):
+        return (("ss", self.state.ss), ("st", self.state.st),
+                ("sa", self.state.sa))
+
+    def _set_table_wildcard(self, name, sel_of, val):
+        """`name` := val on the rows sel_of(table) selects (every row where
+        sel_of is None) of each table that carries the wildcard."""
+        for tname, table in self._tables():
+            if name not in table.wildcards:
+                continue
+            wc = dict(table.wildcards)
+            wc[name] = (torch.full_like(wc[name], float(val))
+                        if sel_of is None else
+                        torch.where(sel_of(table), float(val), wc[name]))
+            self.state = self.state.replace(
+                **{tname: table.replace(wildcards=wc)})
+
+    def SetContactWildcardValueAll(self, name: str, val: float):
+        self._set_table_wildcard(name, None, val)
+
+    def SetContactWildcardValue(self, name: str, val: float):
+        """Every contact of every table."""
+        self.SetContactWildcardValueAll(name, val)
+
+    def _contact_family_sel(self, table, famA, famB=None):
+        """Live rows with either side in famA (famB None), or the pair
+        exactly (famA, famB) in either order."""
+        fam = self.state.owners.family
+        live = table.idA >= 0
+        fa = fam[torch.clamp(table.own_a, min=0).long()]
+        fb = fam[torch.clamp(table.own_b, min=0).long()]
+        if famB is None:
+            return live & ((fa == famA) | (fb == famA))
+        return live & (((fa == famA) & (fb == famB))
+                       | ((fa == famB) & (fb == famA)))
+
+    def SetFamilyContactWildcardValue(self, famA: int, *args):
+        """(N1, N2, name, val): contacts between families N1 and N2; or
+        (N, name, val): contacts with either side in N."""
+        if len(args) == 3:
+            famB, name, val = args
+        else:
+            (name, val), famB = args, None
+        self._set_table_wildcard(
+            name, lambda t: self._contact_family_sel(t, famA, famB), val)
+
+    def SetFamilyContactWildcardValueEither(self, family: int, name: str,
+                                            val: float):
+        self.SetFamilyContactWildcardValue(family, name, val)
+
+    def SetFamilyContactWildcardValueBoth(self, family: int, name: str,
+                                          val: float):
+        self.SetFamilyContactWildcardValue(family, family, name, val)
+
+    def GetAllContactWildcardValue(self, name: str):
+        """The wildcard on every live contact: SS rows, then ST, then SA."""
+        out = [t.wildcards[name][:t.count] for _, t in self._tables()
+               if name in t.wildcards]
+        return _np(torch.cat(out)) if out else np.zeros(0, np.float32)
+
+    def _set_wildcard(self, group, name, vals, ids):
+        """Wildcard `name` of the state's `group` (owners, spheres, tris,
+        anals): every entry set to vals (ids None), else the entries
+        ids."""
+        ent = getattr(self.state, group)
+        wc = dict(ent.wildcards)
+        v = torch.as_tensor(np.asarray(vals, np.float32), device=self.device)
+        if ids is None:
+            wc[name] = torch.broadcast_to(v, (ent.n,)).clone()
+        else:
+            arr = wc.get(name)
+            arr = (torch.zeros(ent.n, dtype=defines.F, device=self.device)
+                   if arr is None else arr.clone())
+            arr[torch.as_tensor(np.asarray(ids, np.int64).reshape(-1),
+                                device=self.device)] = v
+            wc[name] = arr
+        self.state = self.state.replace(
+            **{group: ent.replace(wildcards=wc)})
+
+    def _get_wildcard(self, group, name, ids=None):
+        wc = getattr(self.state, group).wildcards[name]
+        if ids is not None:
+            wc = wc[torch.as_tensor(np.asarray(ids, np.int64),
+                                    device=self.device)]
+        return _np(wc)
+
+    def SetOwnerWildcardValue(self, name: str, vals, owner_ids=None):
+        self._set_wildcard("owners", name, vals, owner_ids)
+
+    def GetOwnerWildcardValue(self, name: str, ids=None):
+        return self._get_wildcard("owners", name, ids)
+
+    def SetFamilyOwnerWildcardValue(self, family: int, name: str,
+                                    val: float):
+        """The owner wildcard of every owner in `family`."""
+        owners = self.state.owners
+        wc = dict(owners.wildcards)
+        arr = wc.get(name)
+        if arr is None:
+            arr = torch.zeros(owners.n, dtype=defines.F, device=self.device)
+        wc[name] = torch.where(owners.family == family, float(val), arr)
+        self.state = self.state.replace(owners=owners.replace(wildcards=wc))
+
+    def GetFamilyOwnerWildcardValue(self, family: int, name: str):
+        o = self.state.owners
+        return _np(o.wildcards[name][o.family == family])
+
+    def SetGeometryWildcardValue(self, name: str, vals, geo_ids=None):
+        """Sphere geometry wildcards."""
+        self._set_wildcard("spheres", name, vals, geo_ids)
+
+    def GetGeometryWildcardValue(self, name: str, ids=None):
+        return self._get_wildcard("spheres", name, ids)
+
+    def SetSphereWildcardValue(self, geo_id, name: str, vals):
+        """Spheres geo_id, geo_id + 1, ... take the values of `vals`."""
+        vals = np.atleast_1d(np.asarray(vals, np.float32))
+        self.SetGeometryWildcardValue(
+            name, vals, geo_ids=np.arange(int(geo_id),
+                                          int(geo_id) + len(vals)))
+
+    def GetSphereWildcardValue(self, geo_id, name: str, n: int = 1):
+        """n values from sphere geo_id on."""
+        return _np(self.state.spheres.wildcards[name][
+            int(geo_id):int(geo_id) + int(n)])
+
+    def SetTriWildcardValue(self, name: str, vals, tri_ids=None):
+        self._set_wildcard("tris", name, vals, tri_ids)
+
+    def GetTriWildcardValue(self, name: str, ids=None):
+        return self._get_wildcard("tris", name, ids)
+
+    def SetAnalWildcardValue(self, name: str, vals, comp_ids=None):
+        self._set_wildcard("anals", name, vals, comp_ids)
+
+    def GetAnalWildcardValue(self, name: str, ids=None):
+        return self._get_wildcard("anals", name, ids)
+
+    def _persistency_on(self):
+        """Persistency on; after Initialize in the engine's config too,
+        so the next refresh re-injects."""
+        self._use_persistency = True
+        if self._initialized and not self.engine.cfg.use_persistency:
+            self.engine.cfg = dataclasses.replace(self.engine.cfg,
+                                                  use_persistency=True)
+
+    def _set_persist(self, value: int, famA=None, famB=None, both=False):
+        """Mark (1) or unmark (0) the contacts that exist now, once: no
+        rule for later contacts."""
+        if not self._initialized:
+            raise RuntimeError("call Initialize() first")
+        fam = self.state.owners.family
+        for tname, table in self._tables():
+            live = table.idA >= 0
+            if famA is None:
+                sel = live
+            elif famB is not None:
+                sel = self._contact_family_sel(table, famA, famB)
+            else:
+                fa = fam[torch.clamp(table.own_a, min=0).long()]
+                fb = fam[torch.clamp(table.own_b, min=0).long()]
+                sel = live & (((fa == famA) & (fb == famA)) if both
+                              else ((fa == famA) | (fb == famA)))
+            self.state = self.state.replace(**{tname: table.replace(
+                persist=torch.where(sel, value, table.persist))})
+        if value:
+            self._persistency_on()
+
+    def MarkPersistentContact(self):
+        """Every contact that exists now stays in its table until removed
+        (before Initialize: every family pair, as a rule)."""
+        if self._initialized:
+            self._set_persist(1)
+        else:
+            self._use_persistency = True
+            self._family_persist[:, :] = True
+
+    def MarkFamilyPersistentContactEither(self, family: int):
+        self._set_persist(1, famA=family, both=False)
+
+    def MarkFamilyPersistentContactBoth(self, family: int):
+        self._set_persist(1, famA=family, both=True)
+
+    def MarkFamilyPersistentContact(self, family: Optional[int] = None):
+        """Contacts involving `family` (every family if None), detected at
+        any later refresh, stay in their table with their wildcards when
+        no longer detected: the bonded-particle and fracture models."""
+        if family is None:
+            self._family_persist[:, :] = True
+        else:
+            self._family_persist[family, :] = True
+            self._family_persist[:, family] = True
+        self._persistency_on()
+        if self._initialized:
+            self._rebuild_params()
+
+    def MarkPersistentContactBetweenFamilies(self, famA: int, famB: int):
+        self._family_persist[famA, famB] = True
+        self._family_persist[famB, famA] = True
+        self._persistency_on()
+        if self._initialized:
+            self._rebuild_params()
+
+    def RemovePersistentContact(self):
+        if self._initialized:
+            self._set_persist(0)
+        self._family_persist[:, :] = False
+        if self._initialized:
+            self._rebuild_params()
+
+    def RemoveFamilyPersistentContactEither(self, family: int):
+        self._set_persist(0, famA=family, both=False)
+        self._family_persist[family, :] = False
+        self._family_persist[:, family] = False
+        self._rebuild_params()
+
+    def RemoveFamilyPersistentContactBoth(self, family: int):
+        self._set_persist(0, famA=family, both=True)
+        self._family_persist[family, family] = False
+        self._rebuild_params()
+
+    def RemoveFamilyPersistentContact(self, famA: int, famB: int):
+        self._set_persist(0, famA=famA, famB=famB)
+        self._family_persist[famA, famB] = False
+        self._family_persist[famB, famA] = False
+        self._rebuild_params()
 
     # ------------------------------------------------------------------
     # trackers
@@ -1127,7 +1440,21 @@ class DEMSolver:
                 return np.tile(np.asarray(default, np.float64), (n, 1))
             return np.asarray(arr, np.float64).reshape(n, -1)
 
+        model = self._force_model
+        # owner wildcards per clump; a geometry wildcard is given per
+        # clump too and covers every sphere of it (as in the JAX package);
+        # names the model declares but the batch lacks are zero
+        owner_wc = {k: np.broadcast_to(np.asarray(
+            b.owner_wildcards.get(k, 0.0), np.float32).reshape(-1),
+            (n,)) for k in model.owner_wildcards}
+        geo_wc = {}
+        for k in model.geo_wildcards:
+            gw = np.asarray(b.geo_wildcards.get(k, ()), np.float32)
+            vals = (gw.reshape(-1)[:n] if gw.size >= n
+                    else np.zeros(n, np.float32))
+            geo_wc[k] = np.repeat(vals, n_comp)
         return dict(
+            owner_wc=owner_wc, geo_wc=geo_wc,
             pos=b.xyz - self._lbf,
             quat=per_clump(b.oriq, [1.0, 0.0, 0.0, 0.0]),
             vel=per_clump(b.vel, [0.0, 0.0, 0.0]),
@@ -1156,15 +1483,12 @@ class DEMSolver:
         # owners: clumps, then analytical objects, then meshes
         parts = []
         oid = 0
+        n_sph = 0
         for b in self._batches:
-            if (b.existing_contacts is not None or b.owner_wildcards
-                    or b.geo_wildcards):
-                raise NotImplementedError(
-                    "restart contacts and owner/geometry wildcards are not "
-                    "ported to the torch package yet")
-            b.owner_offset = oid
+            b.owner_offset, b.sphere_offset = oid, n_sph
             parts.append(self._flatten_batch(b, oid))
             oid += b.n
+            n_sph += len(parts[-1]["s_owner"])
         self._n_clump_owners = oid
         self._owner_templates = [t for p in parts for t in p["kinds"]]
         starts = np.cumsum([0] + [len(p["kinds"]) for p in parts])
@@ -1225,13 +1549,22 @@ class DEMSolver:
             return np.concatenate(rows)
 
         z3 = np.zeros((n_ext, 3))
+
+        def wc_cat(key, names, n_rest):
+            # non-clump owners carry zeros
+            return {k: np.concatenate([p[key][k] for p in parts]
+                                      + [np.zeros(n_rest, np.float32)])
+                    for k in names}
+
         owners = make_owners(
             pos=cat("pos", ext["pos"], 3), voxel_size=self._voxel_size,
             quat=cat("quat", ext["quat"], 4), vel=cat("vel", z3, 3),
             omg=cat("omg", z3, 3),
             family=cat("family", ext["family"], 1).reshape(-1),
             mass=cat("mass", ext["mass"], 1).reshape(-1),
-            moi=cat("moi", ext["moi"], 3), device=self.device,
+            moi=cat("moi", ext["moi"], 3),
+            wildcards=wc_cat("owner_wc", model.owner_wildcards, n_ext),
+            device=self.device,
         )
 
         def scat(key, width=None):
@@ -1241,6 +1574,8 @@ class DEMSolver:
 
         spheres = make_spheres(owner=scat("s_owner"), relpos=scat("s_rel", 3),
                                radius=scat("s_rad"), mat=scat("s_mat"),
+                               wildcards=wc_cat("geo_wc", model.geo_wildcards,
+                                                0),
                                device=self.device)
         anals = make_analyticals(
             owner=np.asarray(a_owner), objtype=np.asarray(a_type),
@@ -1287,10 +1622,14 @@ class DEMSolver:
             prescriptions=tuple(self._prescriptions.values()),
             family_changes=tuple(self._family_changes),
             cd_two_class=two_class,
-            uniq_cap=self._uniq_cap if on_card else 0,
+            # unique fetch belongs to the fused SS pass
+            uniq_cap=(self._uniq_cap if on_card and forces.fused_ss(model)
+                      else 0),
+            use_persistency=self._use_persistency,
         )
         self.state = make_state(owners, spheres, cfg, tris=tris,
                                 anals=anals)
+        cfg = self._seed_existing_contacts(cfg)
         vol = np.zeros(n_owners, np.float32)
         vol[:oid_clumps] = self._owner_volume
         self._volume_dev = torch.as_tensor(vol, device=self.device)
@@ -1307,6 +1646,56 @@ class DEMSolver:
         if dry_run:
             self.state = self.engine.refresh(self.state, self.params)
         return self
+
+    def _seed_existing_contacts(self, cfg):
+        """Restart contacts (``SetExistingContacts``, sphere ids local to
+        their batch) and their wildcards into the initial SS table, so
+        that the first refresh carries their history to the pairs it
+        detects again. Returns the config, with cap_ss raised where the
+        seeds exceed it (the engine's tables and config keep one
+        capacity)."""
+        lo, hi, segs = [], [], []
+        pos = 0
+        for b in self._batches:
+            if not b.existing_contacts:
+                continue
+            off = b.sphere_offset
+            a = np.asarray(b.existing_contacts["idA"], np.int64) + off
+            c = np.asarray(b.existing_contacts["idB"], np.int64) + off
+            lo.append(np.minimum(a, c))
+            hi.append(np.maximum(a, c))
+            segs.append((pos, len(a), b.existing_contact_wildcards or {}))
+            pos += len(a)
+        if not lo:
+            return cfg
+        n = pos
+        if n > cfg.cap_ss:
+            cfg = dataclasses.replace(
+                cfg, cap_ss=-(-(int(1.25 * n) + 64) // 512) * 512)
+        old = self.state.ss
+        table = empty_ss_table(cfg, cfg.cap_ss, self.device,
+                               old.uniq_a.shape[0])
+        idA, idB = table.idA.clone(), table.idB.clone()
+        idA[:n] = torch.as_tensor(np.concatenate(lo), device=self.device)
+        idB[:n] = torch.as_tensor(np.concatenate(hi), device=self.device)
+        # each batch's wildcards land at its own rows: batches may carry
+        # different names
+        wc = dict(table.wildcards)
+        for k in wc:
+            vals = np.zeros(n, np.float32)
+            found = False
+            for start, cnt, d in segs:
+                if k in d:
+                    vals[start:start + cnt] = np.asarray(d[k], np.float32)
+                    found = True
+            if found:
+                w = wc[k].clone()
+                w[:n] = torch.as_tensor(vals, device=self.device)
+                wc[k] = w
+        self.state = self.state.replace(ss=table.replace(
+            idA=idA, idB=idB, wildcards=wc,
+            count=torch.tensor(n, dtype=defines.I, device=self.device)))
+        return cfg
 
     def _add_bounding_planes(self):
         mat = self._bounding_bc_mat or (
@@ -1404,8 +1793,8 @@ class DEMSolver:
         if lost > self._lost_reported:
             msg = (f"{lost - self._lost_reported} contact(s) with live "
                    f"history were not re-detected at a CD refresh and lost "
-                   f"their wildcards (total {lost}); consider larger "
-                   f"margins")
+                   f"their wildcards (total {lost}); consider "
+                   f"MarkPersistentContact or larger margins")
             self._anomalies.append(msg)
             self._engine_log("STEP_METRIC", msg)
             self._lost_reported = lost
@@ -1525,16 +1914,20 @@ class DEMSolver:
     def _fill_contact_fields(self):
         """Per-contact force/torque/cpoint of the SS table for queries.
 
-        The step sums wrenches per owner and never keeps per-contact
-        forces (the SS table carries none), so a query runs the force
-        pass once more with its extras outputs, on the current state.
-        The wildcards it computes are thrown away: a query does not
-        advance the contact history."""
+        The fused step sums wrenches per owner and never keeps
+        per-contact forces (its SS table carries none), so a query runs
+        the force pass once more with its extras outputs, on the current
+        state. The wildcards it computes are thrown away: a query does not
+        advance the contact history. The SS table of any other model
+        holds the fields its last step's ``contact_pass`` wrote."""
         st = self.state
-        if st.ss.cap == 0 or st.spheres.n == 0:
+        cfg = self.engine.cfg
+        if (st.ss.cap == 0 or st.spheres.n == 0
+                or not forces.fused_ss(cfg.force_model)):
+            # a non-fused SS table keeps the fields of its last step's
+            # contact_pass, as the ST and SA tables do
             self._ss_query = None
             return
-        cfg = self.engine.cfg
         krec = forces.pack_kinematics(st.owners, world_omg=True)
         _, _, tbl = fused_step_ss(st.ss, st.owners, float(self.params.h),
                                   cfg.voxel_size, cfg.force_model, krec,
@@ -1746,9 +2139,14 @@ class DEMSolver:
         absv = np.linalg.norm(_np(st.owners.vel), axis=1)[own]
         fams = _np(st.owners.family)[own]
         keep = self._output_mask(fams)
+        extra = {}
+        if self._out_content & defines.OutputContent.GEO_WILDCARD:
+            extra = {k: _np(st.spheres.wildcards[k])[keep]
+                     for k in self._force_model.geo_wildcards}
         io_utils.write_spheres_csv(
             path, pos[keep], _np(st.spheres.radius)[keep], owner=own[keep],
-            absv=absv[keep], family=fams[keep], fmt=self._out_format)
+            absv=absv[keep], family=fams[keep], extra=extra,
+            fmt=self._out_format)
 
     def WriteClumpFile(self, path):
         """One row per clump owner (families of DisableFamilyOutput left
@@ -1783,7 +2181,8 @@ class DEMSolver:
             extra.update({"a_x": acc[:, 0], "a_y": acc[:, 1],
                           "a_z": acc[:, 2]})
         if oc & OC.OWNER_WILDCARD:
-            extra.update({k: _np(v[rows]) for k, v in o.wildcards.items()})
+            extra.update({k: _np(o.wildcards[k][rows])
+                          for k in self._force_model.owner_wildcards})
         io_utils.write_clumps_csv(
             path, pos, _np(o.quat[rows]), vel=vel, ang_vel=_np(o.omg[rows]),
             family=_np(o.family[rows]), clump_type=clump_type, extra=extra,

@@ -172,3 +172,73 @@ def build_case(n_clumps: int, update_freq: int = 20, poly_frac: float = 0.0,
         device=device,
     )
     return cfg, state, params
+
+
+# ---------------------------------------------------------------------------
+# custom force models of the cohesive bed and the bonded block
+# ---------------------------------------------------------------------------
+
+FRICTION_HISTORY = ("delta_tan_x", "delta_tan_y", "delta_tan_z", "delta_time")
+
+
+def cohesion_model():
+    """Hertz-Mindlin plus cohesion, the shape of DEME's
+    ForceModelWithCohesion user script: ``Cohesion * m_eff`` along -b2a
+    while two bodies overlap, with `Cohesion` a pairwise material
+    property. The cohesion term is scaled by the product of the two
+    owners' owner wildcard `coh_scale` and of the two spheres' geometry
+    wildcard `stick` (an analytical or mesh side has no `stick` and
+    counts 1), so that a family can be made to stick less."""
+    import torch
+
+    from .models.force_model import ForceModel
+    from .models.hertz import _full_fn
+
+    def fn(ctx):
+        force, torque, wc = _full_fn(ctx)
+        m_eff = ctx.a_mass * ctx.b_mass / torch.clamp(
+            ctx.a_mass + ctx.b_mass, min=1e-30)
+        scale = ctx.a_owner_wc["coh_scale"] * ctx.b_owner_wc["coh_scale"]
+        scale = scale * ctx.a_geo_wc["stick"]
+        if "stick" in ctx.b_geo_wc:
+            scale = scale * ctx.b_geo_wc["stick"]
+        f_coh = torch.where(ctx.overlap > 0.0,
+                            ctx.pair("Cohesion") * m_eff * scale, 0.0)
+        return force - f_coh[:, None] * ctx.b2a, torque, wc
+
+    return ForceModel(
+        name="hertz_cohesion", fn=fn, contact_wildcards=FRICTION_HISTORY,
+        owner_wildcards=("coh_scale",), geo_wildcards=("stick",),
+        per_material_props=("E", "nu"),
+        pairwise_props=("CoR", "mu", "Crr", "Cohesion"))
+
+
+def bond_model(k_bond=1e5, break_strain=0.015, kn_contact=1e5, damp=0.25):
+    """The bonded-block model of DEMdemo_Fracture_Box: a damped linear
+    spring on every contact whose wildcard `unbroken` is 1, which breaks
+    for good past `break_strain` of the summed radii in tension or in
+    compression; a plain repulsive spring on unbonded overlaps."""
+    import torch
+
+    from .models.force_model import ForceModel
+
+    def fn(ctx):
+        stretch = -ctx.overlap
+        unbroken = ctx.wildcards["unbroken"]
+        lim = break_strain * (ctx.a_radius + ctx.b_radius)
+        breaks = (stretch > lim) | (ctx.overlap > lim)
+        unbroken = torch.where(breaks, 0.0, unbroken)
+        f_bond = torch.where(unbroken > 0.5, k_bond * ctx.overlap, 0.0)
+        f_contact = torch.where((unbroken <= 0.5) & (ctx.overlap > 0),
+                                kn_contact * ctx.overlap, 0.0)
+        m_eff = ctx.a_mass * ctx.b_mass / (ctx.a_mass + ctx.b_mass)
+        vn = torch.sum((ctx.a_lin_vel - ctx.b_lin_vel) * ctx.b2a, dim=-1)
+        active = (unbroken > 0.5) | (ctx.overlap > 0)
+        c = 2.0 * damp * torch.sqrt(k_bond * m_eff)
+        f_damp = torch.where(active, -c * vn, 0.0)
+        force = (f_bond + f_contact + f_damp)[:, None] * ctx.b2a
+        return force, torch.zeros_like(force), {"unbroken": unbroken}
+
+    return ForceModel(
+        name="bond", fn=fn, contact_wildcards=("unbroken",),
+        per_material_props=(), pairwise_props=(), no_contact_force=True)

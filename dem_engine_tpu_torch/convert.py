@@ -9,8 +9,14 @@ for the family masks. This module imports nothing of JAX: prescriptions
 and family-change rules, which hold callables, are not carried across
 but checked against the port's own (``config_from_reference``).
 
-Layouts differ in two places: the port's SS table always carries the
-fused-pass record ``fstat_a`` and no wide ``statics``, and of the JAX
+Force models hold callables of one framework too: a custom model's
+``fn`` is JAX code, so the caller passes the port's own model, whose
+declared resources must equal the JAX model's.
+
+Layouts differ in two places: the port's SS table of a built-in Hertz
+model always carries the fused-pass record ``fstat_a`` and no wide
+``statics`` (for any other model it carries the wide layout, as the JAX
+package's does off the TPU), and of the JAX
 package's unique-fetch fields it keeps the A layout's (``uidx``,
 ``uniq_a``) and ``uniq_max``, since its kernel computes each contact
 once, and adds the A layout's block row starts (``blk_start``), which the
@@ -137,9 +143,11 @@ def table_from_numpy(t, device, fused=False) -> ContactTable:
         fstat_a=_t(fstat, device, F))
 
 
-def state_from_numpy(s, device) -> SimState:
+def state_from_numpy(s, device, fused_ss: bool = True) -> SimState:
+    """The state; `fused_ss` False takes the SS table in the wide layout
+    (a model without a fused variant, ``forces.fused_ss``)."""
     owners = owners_from_numpy(_get(s, "owners"), device)
-    ss = table_from_numpy(_get(s, "ss"), device, fused=True)
+    ss = table_from_numpy(_get(s, "ss"), device, fused=fused_ss)
     if ss.uniq_a.shape[0]:
         # the JAX table has no row starts: its kernel searches own_a
         ss = ss.replace(blk_start=block_starts(ss.own_a, owners.n))
@@ -215,25 +223,47 @@ def _check_family_changes(ref, port):
                          f"config's {want}")
 
 
-def config_from_reference(cfg, prescriptions=None,
-                          family_changes=None) -> SolverConfig:
-    """The port's SolverConfig from a JAX ``SolverConfig``: voxel size,
-    integrator, built-in force model, capacities, the ST sweep's scan
-    widths and the two-class CD settings. Options of the JAX package that
-    select TPU kernels or layouts have no counterpart (the port picks
-    kernels by device); settings the port does not run yet raise.
+_MODEL_FIELDS = ("name", "contact_wildcards", "owner_wildcards",
+                 "geo_wildcards", "per_material_props", "pairwise_props",
+                 "no_contact_force")
 
-    Prescriptions and family-change rules hold callables of one
-    framework and cannot be carried across: where the JAX config has
-    them, pass the port's own (``models.prescriptions``) as
-    `prescriptions` and `family_changes`; their families, channels and
-    masks must match the JAX config's."""
-    model = _MODELS.get(_get(cfg, "force_model").fused_variant)
-    if model is None:
-        raise NotImplementedError(
-            "only the built-in Hertz force models are ported")
-    if _get(cfg, "use_persistency"):
-        raise NotImplementedError("persistency is not ported yet")
+
+def _check_model(ref, port):
+    """The port's model declares what the JAX model declares."""
+    diff = [f for f in _MODEL_FIELDS
+            if _get(ref, f) != getattr(port, f)]
+    if diff:
+        raise ValueError(
+            "the force model differs from the JAX config's in "
+            + ", ".join(f"{f} ({getattr(port, f)!r}, JAX "
+                        f"{_get(ref, f)!r})" for f in diff))
+
+
+def config_from_reference(cfg, prescriptions=None, family_changes=None,
+                          force_model=None) -> SolverConfig:
+    """The port's SolverConfig from a JAX ``SolverConfig``: voxel size,
+    integrator, force model, capacities, the ST sweep's scan widths, the
+    two-class CD settings and persistency. Options of the JAX package
+    that select TPU kernels or layouts have no counterpart (the port
+    picks kernels by device).
+
+    Prescriptions, family-change rules and custom force models hold
+    callables of one framework and cannot be carried across: where the
+    JAX config has them, pass the port's own (``models.prescriptions``,
+    ``models.ForceModel``) as `prescriptions`, `family_changes` and
+    `force_model`; their families, channels and masks, and the model's
+    name, wildcards, material props and ``no_contact_force``, must match
+    the JAX config's. A built-in Hertz model needs no `force_model`."""
+    ref_model = _get(cfg, "force_model")
+    if force_model is None:
+        builtin = _MODELS.get(ref_model.fused_variant)
+        if builtin is None:
+            raise ValueError(
+                "the JAX config has a custom force model, whose callable "
+                "cannot be carried across: pass the port's own as "
+                "`force_model=`")
+        force_model = builtin()
+    _check_model(ref_model, force_model)
     for name, given, check in (
             ("prescriptions", prescriptions, _check_prescriptions),
             ("family_changes", family_changes, _check_family_changes)):
@@ -246,7 +276,7 @@ def config_from_reference(cfg, prescriptions=None,
     return SolverConfig(
         voxel_size=float(_get(cfg, "voxel_size")),
         integrator=TimeIntegrator(_get(cfg, "integrator").value),
-        force_model=model(),
+        force_model=force_model,
         cap_ss=int(_get(cfg, "cap_ss")),
         cap_st=int(_get(cfg, "cap_st")),
         cap_sa=int(_get(cfg, "cap_sa")),
@@ -259,6 +289,7 @@ def config_from_reference(cfg, prescriptions=None,
         # the JAX package builds unique-fetch layouts on fused tables only
         uniq_cap=(int(_get(cfg, "uniq_cap"))
                   if _get(cfg, "use_fused_force") else 0),
+        use_persistency=bool(_get(cfg, "use_persistency")),
         prescriptions=tuple(prescriptions or ()),
         family_changes=tuple(family_changes or ()),
     )

@@ -161,12 +161,14 @@ def make_analyticals(owner, objtype, relpos, direction, size, normal_sign,
 
 
 def empty_ss_table(cfg: SolverConfig, cap: int, device, uniq_rows: int = 0):
-    """The SS table of a fused (built-in Hertz) model: the slim layout
-    that the fused force pass reads, with `uniq_rows` unique-fetch
-    slots."""
-    from .ops.forces import require_fused
+    """The SS table: for a fused (built-in Hertz) model the slim layout
+    that the fused force pass reads, with `uniq_rows` unique-fetch slots;
+    for any other model the wide layout of ``contact_pass``, as the ST
+    and SA tables have."""
+    from .ops.forces import fused_ss
 
-    require_fused(cfg.force_model)
+    if not fused_ss(cfg.force_model):
+        return empty_table(cfg, cap, device)
     return ContactTable.empty(
         cap, cfg.force_model.contact_wildcards, fused=True,
         uniq_rows=uniq_rows,
@@ -176,14 +178,18 @@ def empty_ss_table(cfg: SolverConfig, cap: int, device, uniq_rows: int = 0):
 
 def ss_uniq_rows(cfg: SolverConfig, n_owners: int) -> int:
     """Rows of the per-block unique-other lists (0 when unique fetch is
-    off)."""
+    off or the SS table is not the fused pass's)."""
+    from .ops.forces import fused_ss
     from .ops.fused_force import n_blocks_of
 
+    if not fused_ss(cfg.force_model):
+        return 0
     return n_blocks_of(n_owners) * cfg.uniq_cap
 
 
 def empty_table(cfg: SolverConfig, cap: int, device):
-    """An ST/SA table: the wide statics layout that contact_pass reads."""
+    """A non-fused table: the wide statics layout that contact_pass
+    reads."""
     from .ops.forces import premix_names
 
     return ContactTable.empty(cap, cfg.force_model.contact_wildcards,

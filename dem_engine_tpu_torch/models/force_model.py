@@ -7,6 +7,12 @@ step) and returns the force on body A, a torque-only force and the
 updated per-contact wildcards. All fields are batched over the table's
 capacity axis; the engine masks padding rows after the model runs, so a
 model may compute garbage there as long as it is finite.
+
+A model's callable computes with torch operations on the context's
+tensors (``torch.where``, ``torch.sqrt``); it must not read back to the
+host (``.item()``, ``float(x)``, ``x[mask]``), since the step runs it
+with no sync. The built-in Hertz callables (``models.hertz._full_fn``,
+``_frictionless_fn``) are building blocks a custom model may call.
 """
 
 from __future__ import annotations
@@ -96,21 +102,52 @@ ForceFn = Callable[[ContactContext], Tuple[torch.Tensor, torch.Tensor, Dict]]
 class ForceModel:
     """A force model and its declared resources. ``fused_variant`` names
     the hand-written fused SS kernel variant of the built-in Hertz models
-    ("hertz_full" / "hertz_frictionless")."""
+    ("hertz_full" / "hertz_frictionless"); a model without one runs
+    ``forces.contact_pass`` on every table. The setters that change what
+    the model reads per contact (material props, contact wildcards) drop
+    the fused variant, as the JAX package's do."""
 
     name: str
     fn: ForceFn
     contact_wildcards: Tuple[str, ...] = ()
+    owner_wildcards: Tuple[str, ...] = ()
+    geo_wildcards: Tuple[str, ...] = ()
     per_material_props: Tuple[str, ...] = ("E", "nu")
     pairwise_props: Tuple[str, ...] = ("CoR", "mu", "Crr")
+    # True where the model acts without overlap (within the family extra
+    # margin), e.g. electrostatics: a declaration only, the engine runs
+    # such a model as any other
+    no_contact_force: bool = False
     fused_variant: str | None = None
 
     def __hash__(self):
         return id(self)
 
+    def SetMustHaveMatProp(self, names):
+        object.__setattr__(self, "per_material_props", tuple(names))
+        object.__setattr__(self, "fused_variant", None)
+
+    def SetMustPairwiseMatProp(self, names):
+        object.__setattr__(self, "pairwise_props", tuple(names))
+        object.__setattr__(self, "fused_variant", None)
+
+    def SetPerContactWildcards(self, names):
+        object.__setattr__(self, "contact_wildcards", tuple(sorted(names)))
+        object.__setattr__(self, "fused_variant", None)
+
+    def SetPerOwnerWildcards(self, names):
+        object.__setattr__(self, "owner_wildcards", tuple(sorted(names)))
+
+    def SetPerGeometryWildcards(self, names):
+        object.__setattr__(self, "geo_wildcards", tuple(sorted(names)))
+
 
 def effective_mass(ctx: ContactContext) -> torch.Tensor:
     return ctx.a_mass * ctx.b_mass / (ctx.a_mass + ctx.b_mass)
+
+
+def effective_radius(ctx: ContactContext) -> torch.Tensor:
+    return ctx.a_radius * ctx.b_radius / (ctx.a_radius + ctx.b_radius)
 
 
 def hertz_material_mix(E_a, nu_a, E_b, nu_b):

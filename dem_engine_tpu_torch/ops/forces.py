@@ -29,6 +29,7 @@ from ..defines import (
     I,
     SPHERE_ANALYTICAL_CONTACT,
     SPHERE_MESH_CONTACT,
+    SPHERE_SPHERE_CONTACT,
     TINY_FLOAT,
 )
 from ..models.force_model import ContactContext
@@ -71,13 +72,11 @@ def premix_names(model) -> Tuple[str, ...]:
     return tuple(names)
 
 
-def require_fused(model):
-    """The port's SS tables belong to the fused force pass, which exists
-    for the built-in Hertz models only."""
-    if model.fused_variant not in ("hertz_full", "hertz_frictionless"):
-        raise NotImplementedError(
-            "custom force models need the per-contact SS contact_pass, "
-            "which is not ported to the torch package yet")
+def fused_ss(model) -> bool:
+    """Whether the model's SS table belongs to the fused force pass
+    (kernel B): the built-in Hertz models only. Any other model runs
+    ``contact_pass`` on the SS table too."""
+    return model.fused_variant in ("hertz_full", "hertz_frictionless")
 
 
 # ---------------------------------------------------------------------------
@@ -144,11 +143,11 @@ def finalize_table(kind, table: ContactTable, owners: Owners, spheres,
     """Sort the table by (own_a, own_b), rebuild the B-side permutation
     and denormalize the refresh-constant data.
 
-    kind "ss" builds the slim fused-pass record ``fstat_a`` (state.
-    FSTAT_W) and, with `uniq_cap`, the unique-fetch layout of kernel B-ub
-    (``uidx``, ``uniq_a``, ``uniq_max``, ``blk_start``); kinds "st" and
-    "sa" the wide ``statics`` record and premix that ``contact_pass``
-    reads."""
+    The SS table of a fused model (``fused_ss``) gets the slim
+    fused-pass record ``fstat_a`` (state.FSTAT_W) and, with `uniq_cap`,
+    the unique-fetch layout of kernel B-ub (``uidx``, ``uniq_a``,
+    ``uniq_max``, ``blk_start``); every other table the wide ``statics``
+    record and premix that ``contact_pass`` reads."""
     n_owners = owners.n
     src_b = {"ss": spheres, "st": tris, "sa": anals}[kind]
 
@@ -180,8 +179,7 @@ def finalize_table(kind, table: ContactTable, owners: Owners, spheres,
     out = table.replace(idA=idA, idB=idB, persist=persist, own_a=own_a,
                         own_b=own_b, wildcards=wildcards, perm_b=perm_b,
                         own_b_sorted=own_b_sorted)
-    if kind == "ss":
-        require_fused(model)
+    if kind == "ss" and fused_ss(model):
         fstat = _fused_statics(live, own_a, iA, iB, oa, ob, mat_a, mat_b,
                                owners, spheres, params)
         out = out.replace(fstat_a=fstat)
@@ -339,12 +337,16 @@ def _fused_statics(live, own_a, iA, iB, oa, ob, mat_a, mat_b, owners,
 
 def _build_statics(kind, live, iA, iB, oa, ob, own_a, own_b, mat_a, mat_b,
                    owners, spheres, tris, anals):
-    """The (STATIC_W, cap) record of an ST or SA table (state.STATIC_W):
-    columns 8:17 hold the triangle's 9 body-frame node floats (ST) or the
-    analytical component (SA)."""
+    """The (STATIC_W, cap) record of a non-fused table (state.STATIC_W):
+    columns 8:17 hold sphere B's body-frame offset and radius (SS), the
+    triangle's 9 body-frame node floats (ST) or the analytical component
+    (SA)."""
     cap = live.shape[0]
     dev = live.device
-    if kind == "st":
+    if kind == "ss":
+        rest = [spheres.relpos[iB], spheres.radius[iB][:, None],
+                torch.zeros((cap, 5), dtype=F, device=dev)]
+    elif kind == "st":
         rest = [tris.nodes[iB].reshape(cap, 9)]
     else:
         rest = [
@@ -389,15 +391,15 @@ def _unpack_kin(rec):
 
 def contact_pass(kind, table: ContactTable, owners: Owners, spheres,
                  tris, anals, params, time, voxel_size, model, krec=None):
-    """Evaluate one non-fused contact class ("st" or "sa") through the
-    model's Python function. `krec` carries BODY-frame omg
-    (pack_kinematics default). Returns dict(table, rec_a, rec_b) with the
-    per-contact wrench records [force(3), body-frame torque(3)] of each
-    side."""
-    if kind not in ("st", "sa"):
-        raise NotImplementedError(
-            f"contact_pass({kind!r}) is not ported; the torch package's "
-            "SS tables run the fused pass")
+    """Evaluate one non-fused contact class ("ss", "st" or "sa") through
+    the model's Python function: the SS table of a model without a fused
+    variant, and every ST and SA table. `krec` carries BODY-frame omg
+    (pack_kinematics default). Rows past the live ones are masked after
+    the model runs, and the wildcards it returns are written back on live
+    rows only. Returns dict(table, rec_a, rec_b) with the per-contact
+    wrench records [force(3), body-frame torque(3)] of each side; the
+    table keeps the step's force, torque-only force and contact point
+    for queries."""
     live = table.idA >= 0
     iA = torch.where(live, table.idA, 0).long()
     iB = torch.where(live, table.idB, 0).long()
@@ -423,14 +425,22 @@ def contact_pass(kind, table: ContactTable, owners: Owners, spheres,
     geo_wc_a = {k: v[iA] for k, v in spheres.wildcards.items()}
     d = rel_pos(B["vox"], B["loc"], A["vox"], A["loc"], voxel_size)
 
-    if kind == "st":
+    rad_b = torch.full_like(rad_a, HUGE_FLOAT)
+    if kind == "ss":
+        pos_b = d + quat.rotate(B["quat"], s[8:11].T)
+        rad_b = s[11]
+        overlap, b2a, cp = narrowphase.sphere_sphere(rel_a, rad_a, pos_b,
+                                                     rad_b)
+        geo_wc_b = {k: v[iB] for k, v in spheres.wildcards.items()}
+        ctype = SPHERE_SPHERE_CONTACT
+    elif kind == "st":
         nodes_l = s[8:17].T.reshape(-1, 3, 3)
         nodes = quat.rotate(B["quat"][:, None, :], nodes_l) + d[:, None, :]
         overlap, b2a, cp = narrowphase.sphere_triangle(
             rel_a, rad_a, nodes[:, 0], nodes[:, 1], nodes[:, 2])
         geo_wc_b = {k: v[iB] for k, v in tris.wildcards.items()}
         ctype = SPHERE_MESH_CONTACT
-    else:
+    elif kind == "sa":
         obj_pos = d + quat.rotate(B["quat"], s[9:12].T)
         obj_dir = quat.rotate(B["quat"], s[12:15].T)
         size = torch.cat([s[15:16].T, torch.zeros(
@@ -439,7 +449,8 @@ def contact_pass(kind, table: ContactTable, owners: Owners, spheres,
             rel_a, rad_a, s[8].to(I), obj_pos, obj_dir, size, s[16])
         geo_wc_b = {k: v[iB] for k, v in anals.wildcards.items()}
         ctype = SPHERE_ANALYTICAL_CONTACT
-    rad_b = torch.full_like(rad_a, HUGE_FLOAT)
+    else:
+        raise ValueError(kind)
 
     cp_a = cp  # relative to owner A's CoM, global orientation
     cp_b = cp - d
@@ -489,12 +500,13 @@ def contact_pass(kind, table: ContactTable, owners: Owners, spheres,
 def reduce_wrench_segment(n_owners: int, passes, out=None):
     """Owner wrench sums over the (own_a, own_b)-sorted tables, one
     ``segred.seg_sum_pair`` per table: the A side over contiguous own_a
-    segments, the B side through perm_b over own_b_sorted. With `out`
-    (N, 6) the sums are added onto it in place. Returns (f_acc (N,3),
-    t_acc (N,3)), two views of the accumulator."""
+    segments, the B side through perm_b over own_b_sorted. The first
+    table's sums make a new (N, 6) accumulator unless `out` is given;
+    every other table's are added onto it in place. Returns the (N, 6)
+    accumulator [force, body-frame torque]."""
     for p in passes:
         t = p["table"]
         out = segred.seg_sum_pair(p["rec_a"], t.own_a, p["rec_b"],
                                   t.own_b_sorted, t.perm_b, n_owners,
                                   out=out)
-    return out[:, :3], out[:, 3:]
+    return out

@@ -1,9 +1,9 @@
 """Contact-history mapping across contact-table refreshes.
 
 A new contact matching an old (idA, idB) pair inherits its wildcards and
-persistency mark; unmatched new contacts start from zero. Re-injecting
-persistent contacts that were not re-detected comes with the
-persistency slice.
+persistency mark; unmatched new contacts start from zero. With
+persistency on, old persistent contacts that were not re-detected are
+re-injected after the new ones, with their wildcards and mark.
 
 Mechanism: one stable merge-sort of old+new keys. Each key occurs at
 most once per table and old rows precede new rows in the concatenation,
@@ -65,11 +65,27 @@ def _merge_match(old_idA, old_idB, new_idA, new_idB):
     return mv[n_old:], oh[:n_old]
 
 
+def _put(dst, dest, src):
+    """dst with src's rows written at the row numbers `dest`; rows whose
+    number is dst's length are dropped."""
+    buf = torch.cat([dst, dst.new_zeros((1,) + tuple(dst.shape[1:]))])
+    buf[dest] = src.to(dst.dtype)
+    return buf[:dst.shape[0]]
+
+
 def carry_history(old: ContactTable, new_idA, new_idB, new_count,
-                  wildcard_names: Tuple[str, ...]):
+                  wildcard_names: Tuple[str, ...],
+                  use_persistency: bool = False):
     """The refreshed table with wildcards/persistency carried over, and
     n_lost: old non-persistent contacts with live history (a nonzero
     wildcard) that were not re-detected.
+
+    The new pair list must be front-compacted: its `new_count` live rows
+    first. With `use_persistency`, each old persistent row that no new
+    row matched is appended at new_count + its rank among them, with its
+    wildcards and mark; rows that land past the capacity are dropped, and
+    the count is new_count plus every such row, so the caller's
+    ``count > cap`` check sees the overflow.
 
     Layout fields (own_a, statics, fstat_a, ...) stay stale until the
     caller's finalize_table rebuilds them."""
@@ -98,6 +114,22 @@ def carry_history(old: ContactTable, new_idA, new_idB, new_count,
     n_lost = torch.sum(
         (old_live & ~old_matched & (old.persist == 0) & had_history).to(I)
     ).to(I)
+
+    if use_persistency:
+        cap = new_idA.shape[0]
+        keep = old_live & (old.persist > 0) & ~old_matched
+        csum = torch.cumsum(keep.to(I), 0, dtype=I)
+        dest = torch.where(keep, new_count + csum - 1, cap)
+        dest = torch.clamp(dest, max=cap).long()
+        new_idA = _put(new_idA, dest, old.idA)
+        new_idB = _put(new_idB, dest, old.idB)
+        persist = _put(persist, dest, old.persist)
+        for k in wildcard_names:
+            src = old.wildcards.get(k)
+            if src is not None:
+                wildcards[k] = _put(wildcards[k], dest, src)
+        if keep.numel():
+            new_count = (new_count + csum[-1]).to(I)
 
     return old.replace(
         idA=new_idA,

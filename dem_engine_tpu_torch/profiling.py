@@ -31,6 +31,7 @@ import torch
 
 from .defines import I
 from .models.prescriptions import static_tables
+from .ops.forces import fused_ss
 from .solver import dynamics_step, mark_seconds, refresh_contacts, time_mark
 
 REFRESH_STAGES = (("Discretize domain", "start", "table"),
@@ -81,7 +82,8 @@ def profile_stages(engine, state, params, update_freq,
 
     single_grid = (not cfg.cd_two_class and state.spheres.n > 0
                    and cfg.cap_ss > 0)
-    fused = state.spheres.n > 0 and state.ss.cap > 0
+    fused = (state.spheres.n > 0 and state.ss.cap > 0
+             and fused_ss(cfg.force_model))
     force_key = "Calculate contact forces" + (FUSED_SUFFIX if fused else "")
     out: Dict[str, float] = {}
 

@@ -6,7 +6,8 @@ on member tables with the cross search between), sphere-triangle pairs
 by the two-stage ST sweep over the same sorted spheres, sphere-floor
 pairs by brute force; history carried, tables sorted and denormalized.
 ``dynamics_step`` then runs K times against the frozen tables (the fused
-SS pass, kernel B, with its wrench sums, kernel A; the ST and SA tables
+SS pass of a built-in Hertz model, kernel B, with its wrench sums, kernel
+A; the ST and SA tables, and the SS table of any other force model,
 through ``contact_pass`` and kernel A; integration under the family
 prescriptions, evaluated at the step's start time, then the
 family-change rules). Contact margins sized by K·h·velocity keep the
@@ -304,6 +305,25 @@ def st_pairs(state, params, cfg, q, tab):
     return tA, tB, n_st, ovf
 
 
+def _mark_persistent(table, fam_a_src, fam_b_src, params):
+    """Mark the table's live contacts persistent where the family pair of
+    their two sides is (params.family_persist, MarkFamilyPersistentContact
+    and its kin)."""
+    live = table.idA >= 0
+    fa = fam_a_src[torch.where(live, table.idA, 0).long()].long()
+    fb = fam_b_src[torch.where(live, table.idB, 0).long()].long()
+    mark = params.family_persist[fa, fb] & live
+    return table.replace(persist=torch.where(mark, 1, table.persist))
+
+
+def _capped(table, cap, bit):
+    """The finalized table with its count clamped to `cap`, and `bit`
+    where it held more: re-injected persistent rows can push a count
+    past the capacity (without persistency the count never passes it)."""
+    ovf = torch.where(table.count > cap, bit, 0).to(I)
+    return table.replace(count=torch.clamp(table.count, max=cap)), ovf
+
+
 def refresh_contacts(state: SimState, params: RuntimeParams,
                      cfg: SolverConfig, mark=None) -> SimState:
     """One refresh of the contact tables. `mark`, if given, is called
@@ -334,14 +354,20 @@ def refresh_contacts(state: SimState, params: RuntimeParams,
             mark=mark)
         overflow = torch.zeros((), dtype=I, device=dev)
     mark("pairs")
+    persistency = cfg.use_persistency
     ss, lost_ss = history.carry_history(
         state.ss, idA, idB, torch.clamp(n_ss, max=cfg.cap_ss).to(I),
-        wc_names)
+        wc_names, persistency)
+    if persistency:
+        ss = _mark_persistent(ss, sph_family, sph_family, params)
     mark("history")
     overflow |= torch.where(n_ss > cfg.cap_ss, OVF_SS_CAP, 0).to(I)
     ss = forces.finalize_table("ss", ss, owners, spheres, tris, anals,
                                params, cfg.force_model,
                                uniq_cap=cfg.uniq_cap)
+    if persistency:
+        ss, ovf = _capped(ss, cfg.cap_ss, OVF_SS_CAP)
+        overflow |= ovf
     if cfg.uniq_cap:
         overflow |= torch.where(ss.uniq_max > cfg.uniq_cap, OVF_UNIQ,
                                 0).to(I)
@@ -352,9 +378,15 @@ def refresh_contacts(state: SimState, params: RuntimeParams,
         tA, tB, n_st, ovf_st = st_pairs(state, params, cfg, q, tab)
         st, lost_st = history.carry_history(
             state.st, tA, tB, torch.clamp(n_st, max=cfg.cap_st).to(I),
-            wc_names)
+            wc_names, persistency)
+        if persistency:
+            st = _mark_persistent(st, sph_family,
+                                  owners.family[tris.owner.long()], params)
         st = forces.finalize_table("st", st, owners, spheres, tris, anals,
                                    params, cfg.force_model)
+        if persistency:
+            st, ovf = _capped(st, cfg.cap_st, OVF_ST_CAP)
+            overflow |= ovf
         overflow |= ovf_st | torch.where(n_st > cfg.cap_st, OVF_ST_CAP,
                                          0).to(I)
 
@@ -377,9 +409,15 @@ def refresh_contacts(state: SimState, params: RuntimeParams,
             owners.family[own_b], params.family_mask, cfg.cap_sa)
         sa, lost_sa = history.carry_history(
             state.sa, aA, aB, torch.clamp(n_sa, max=cfg.cap_sa).to(I),
-            wc_names)
+            wc_names, persistency)
+        if persistency:
+            sa = _mark_persistent(sa, sph_family, owners.family[own_b],
+                                  params)
         sa = forces.finalize_table("sa", sa, owners, spheres, tris, anals,
                                    params, cfg.force_model)
+        if persistency:
+            sa, ovf = _capped(sa, cfg.cap_sa, OVF_SA_CAP)
+            overflow |= ovf
         overflow |= torch.where(n_sa > cfg.cap_sa, OVF_SA_CAP, 0).to(I)
 
     overflow |= torch.where(~(max_vel <= params.error_out_vel), OVF_VEL,
@@ -418,20 +456,23 @@ def dynamics_step(state: SimState, params: RuntimeParams,
     model = cfg.force_model
     n = owners.n
 
-    # one (n, 6) wrench accumulator per step: the SS sums create it and
-    # the ST and SA sums add onto it in place
+    # one (n, 6) wrench accumulator per step: the first table's sums
+    # create it and the others add onto it in place. The SS table of a
+    # built-in Hertz model runs the fused pass (kernel B with its own
+    # sums); any other model's runs contact_pass like ST and SA
     ss = state.ss
-    if state.spheres.n > 0 and ss.cap > 0:
+    fused = (state.spheres.n > 0 and ss.cap > 0
+             and forces.fused_ss(model))
+    acc = None
+    if fused:
         krec_w = forces.pack_kinematics(owners, world_omg=True)
         acc, ss = fused_wrench_ss(ss, owners, h, cfg.voxel_size, model,
                                   krec_w)
-    else:
-        acc = torch.zeros((n, 6), dtype=F, device=state.device)
-    f_acc, t_acc = acc[:, :3], acc[:, 3:]
-    wide = {"st": state.st, "sa": state.sa}
+    wide = {"ss": ss, "st": state.st, "sa": state.sa}
     passes = []
-    krec = None  # body-frame omg, packed once for both tables
-    for kind, n_geo in (("st", state.tris.n), ("sa", state.anals.n)):
+    krec = None  # body-frame omg, packed once for every table
+    for kind, n_geo in (("ss", 0 if fused else state.spheres.n),
+                        ("st", state.tris.n), ("sa", state.anals.n)):
         if n_geo == 0 or wide[kind].cap == 0 or state.spheres.n == 0:
             continue
         if krec is None:
@@ -443,7 +484,11 @@ def dynamics_step(state: SimState, params: RuntimeParams,
         wide[kind] = p["table"]
         passes.append(p)
     mark("forces")
-    forces.reduce_wrench_segment(n, passes, out=acc)
+    if passes:
+        acc = forces.reduce_wrench_segment(n, passes, out=acc)
+    elif acc is None:
+        acc = torch.zeros((n, 6), dtype=F, device=state.device)
+    f_acc, t_acc = acc[:, :3], acc[:, 3:]
     mark("reduced")
 
     owners = integrator.integrate_owners(
@@ -451,7 +496,7 @@ def dynamics_step(state: SimState, params: RuntimeParams,
         cfg.voxel_size, cfg.integrator, state.time)
     owners = integrator.apply_family_changes(
         owners, cfg.family_changes, cfg.voxel_size, state.time)
-    return state.replace(owners=owners, ss=ss, st=wide["st"],
+    return state.replace(owners=owners, ss=wide["ss"], st=wide["st"],
                          sa=wide["sa"], time=state.time + params.h,
                          step=state.step + 1)
 

@@ -107,6 +107,8 @@ class Analyticals(_Replace):
 # width of the packed per-contact static record of the non-fused tables
 # (forces._build_statics):
 #   [0] ownerA  [1] ownerB  [2:5] relposA  [5] radA  [6] matA  [7] matB
+#   ss: [8:11] relposB [11] radB
+#   st: [8:17] the triangle's body-frame nodes
 #   sa: [8] objtype [9:12] relpos [12:15] direction [15] size1 [16] sign
 #   [17] massA [18] massB [19:22] moiA [22:25] moiB [25] famA [26] famB
 STATIC_W = 32
@@ -136,9 +138,12 @@ class ContactTable(_Replace):
       * ``perm_b`` permutes rows into own_b-sorted order and
         ``own_b_sorted`` = own_b[perm_b], dead rows mapped to n_owners.
 
-    A table the fused SS pass owns ("slim") carries ``fstat_a`` and no
+    A table the fused SS pass owns ("slim": the SS table of a built-in
+    Hertz model) carries ``fstat_a`` and no
     ``statics``/``premix``/``force``/``torque``/``cpoint``; the other
-    tables carry the wide ``statics`` record that ``contact_pass`` reads.
+    tables (the SS table of any other model among them) carry the wide
+    ``statics`` record and ``premix`` that ``contact_pass`` reads, and the
+    ``force``/``torque``/``cpoint`` of its last step.
     """
 
     idA: torch.Tensor          # i32[C] sphere geometry id
@@ -396,5 +401,9 @@ class SolverConfig:
     #: per-block capacity of the unique-other-owner lists of kernel B-ub
     #: (0 = off: kernel B gathers each row's B record itself)
     uniq_cap: int = 0
+    #: keep contacts marked persistent (params.family_persist, the
+    #: Mark*Persistent* calls) in their tables with their wildcards when
+    #: a refresh no longer detects them
+    use_persistency: bool = False
     prescriptions: Tuple[Any, ...] = ()
     family_changes: Tuple[Any, ...] = ()

@@ -140,8 +140,10 @@ class DEMClumpBatch:
     )
     existing_contacts: Optional[dict] = None  # restart support
     existing_contact_wildcards: Optional[Dict[str, np.ndarray]] = None
-    # filled at Initialize: owner index of first clump
+    # filled at Initialize: owner index of the first clump and sphere
+    # index of its first sphere (restart contacts are local to it)
     owner_offset: Optional[int] = None
+    sphere_offset: Optional[int] = None
 
     @property
     def n(self) -> int:

@@ -707,3 +707,76 @@ def test_read_side_matches_cpu(tmp_path):
     s.DoDynamics(1e-4)
     t = s.engine.read_timers()
     assert (t["refresh_n"], t["steps_n"]) == (2, 10) and t["steps_s"] > 0
+
+
+def test_cohesive_solver_matches_cpu():
+    """A custom force model through the public DEMSolver on the card
+    against the CPU: the cohesive scene of tests/test_torch_custom.py
+    (256 3-sphere clumps on a floor, cases.cohesion_model with the owner
+    wildcard coh_scale, 0 on the last 32 clumps, and the geometry
+    wildcard stick; Crr = 0), K = 5, 20 steps: contact_pass on the SS
+    table and kernel A on its records. Owner velocities within 2e-4 of the
+    largest, the same SS pairs, the friction history within 2e-4; 10 more
+    steps on the card under torch.cuda.set_sync_debug_mode("error")."""
+    from dem_engine_tpu_torch.cases import cohesion_model
+
+    _need_card()
+    r = 0.005
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = DEMSolver(device=dev)
+        s.SetVerbosity("QUIET")
+        nx, ny, nz = 8, 8, 4
+        dims = np.asarray([nx * 1.99 * r + 20 * r, ny * 1.99 * r + 20 * r,
+                           nz * 3.99 * r + 40 * r])
+        s.InstructBoxDomainDimension(*dims)
+        mat = s.LoadMaterial({"E": 1e7, "nu": 0.3, "CoR": 0.5, "mu": 0.4,
+                              "Crr": 0.0, "Cohesion": 20.0})
+        s.DefineContactForceModel(cohesion_model())
+        m_s = 2600 * 4 / 3 * np.pi * r**3
+        i_s = 0.4 * m_s * r * r
+        tmpl = s.LoadClumpType(
+            3 * m_s, [3 * i_s + 2 * m_s * r * r] * 2 + [3 * i_s],
+            [r, r, r], [[0, 0, -r], [0, 0, 0], [0, 0, r]], mat)
+        n = nx * ny * nz
+        idx = np.arange(n)
+        lbf = -dims / 2
+        pos = np.stack([idx % nx * 1.99 * r + 10 * r,
+                        (idx // nx) % ny * 1.99 * r + 10 * r,
+                        idx // (nx * ny) * 3.99 * r + 4 * r], -1) + lbf
+        pos += np.random.default_rng(0).uniform(-0.1 * r, 0.1 * r,
+                                                pos.shape)
+        b = s.AddClumps(tmpl, pos)
+        b.SetFamilies(np.where(idx >= n - 32, 1, 0))
+        b.AddOwnerWildcard("coh_scale", 1.0)
+        b.AddGeometryWildcard("stick", np.ones(n))
+        s.AddBCPlane([0, 0, lbf[2] + 2 * r], [0, 0, 1], mat)
+        s.SetInitTimeStep(1e-5)
+        s.SetGravitationalAcceleration([0, 0, -9.81])
+        s.SetCDUpdateFreq(5)
+        s.Initialize()
+        s.SetFamilyOwnerWildcardValue(1, "coh_scale", 0.0)
+        s.DoDynamics(2e-4)
+        ss = s.state.ss
+        k = int(ss.count)
+        rows = {(int(a), int(c)): i for i, (a, c) in enumerate(zip(
+            ss.idA[:k].tolist(), ss.idB[:k].tolist()))}
+        hist = torch.stack([ss.wildcards[w][:k] for w in sorted(
+            ss.wildcards)], 1).cpu().numpy()
+        out[dev] = (s.GetOwnerVelocity(), rows, hist)
+        if dev == "cuda":
+            pk = s.params.replace(max_drift=torch.tensor(
+                5, dtype=torch.int32, device=dev))
+            st, h = s.engine.refresh(s.state, pk), float(s.params.h)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                st = run_steps(st, pk, s.engine.cfg, 10, h=h)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert torch.isfinite(st.owners.vel).all()
+    (vg, rg, hg), (vc, rc, hc) = out["cuda"], out["cpu"]
+    assert np.abs(vg - vc).max() <= 2e-4 * np.abs(vc).max()
+    assert set(rg) == set(rc) and rc
+    order = [rg[key] for key in rc]
+    assert np.abs(hg[order] - hc).max() <= 2e-4 * np.abs(hc).max()
