@@ -122,6 +122,31 @@ Phases, each printing its own numbers; any failure exits nonzero:
                contact_pass records against its plain version. Both have
                breakdowns, and (a) A's device time on its SS records,
                with the profiled parts at the end
+  14 rest    the rest of the API on one DEMSolver of the API's mono
+               lattice: (a) UseAdaptiveUpdateFreq, UseAdaptiveBinSize,
+               SetCDMaxUpdateFreq(52), 3,200 steps in blocks of 8 chunks:
+               one line per block (K, bin factor, ms/step by CUDA events,
+               ss.count/cap, growths), each tuner must move and stay on
+               its ladder, no contact lost, physics; kernel C identical
+               to the plain sweep at the largest bin factor visited and
+               at 1.0; (b) tuners off, SaveCheckpoint (time, bytes), 250
+               steps, LoadCheckpoint (every tensor bit for bit), the 250
+               steps again (within 1e-3 R), the file into a fresh solver
+               (bit for bit, a chunk runs); (c) UpdateClumps of 4 layers
+               (16,384 clumps, family 2) 0.5 R above the bed's highest
+               sphere at 1 m/s down, cap_ss first cut to the live count:
+               exact counts,
+               1,000 steps with the SS table grown and each growth
+               logged at STEP_METRIC, launch counts, peak memory, C on
+               the grown table identical, the layer falls; (d)
+               PurgeFamily(2): the owners the JAX package's rule keeps
+               (family 2 below GetNumClumps()), no sphere on a purged
+               owner, positions bit for bit, C after a chunk; (e)
+               ChangeClumpSizes of every tenth clump by 0.95: exact
+               scaling, 50 steps, |v| bound, physics, C identical; the
+               memory getters. Profiled at the end: C's device time at
+               the largest bin factor and at 1.0, and (with breakdown)
+               the final solver's step and refresh
 With every phase run, the line before the last holds the kernels' JSON
 record and the one before it the card's name and power limit; the last
 line is the JSON verdict.
@@ -130,6 +155,7 @@ line is the JSON verdict.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -1723,22 +1749,6 @@ def gap_cut(vals, frac, window=0.1):
     return 0.5 * (v[g] + v[g + 1])
 
 
-def state_tensors(x, path="state"):
-    """Every tensor of a (nested) state dataclass, by path."""
-    import dataclasses
-
-    import torch
-
-    if isinstance(x, torch.Tensor):
-        yield path, x
-    elif dataclasses.is_dataclass(x):
-        for f in dataclasses.fields(x):
-            yield from state_tensors(getattr(x, f.name), f"{path}.{f.name}")
-    elif isinstance(x, dict):
-        for key, v in x.items():
-            yield from state_tensors(v, f"{path}[{key}]")
-
-
 def inspect_ref(s, q, mask, host):
     """An inspector quantity in float64 numpy over the copied state
     `host`, the spheres in `mask`."""
@@ -1994,6 +2004,8 @@ def phase_output(torch, n_clumps, k, steps):
     finally:
         shutil.rmtree(d, ignore_errors=True)
     # the stage profile leaves the state as it was, bit for bit
+    from dem_engine_tpu_torch.state import state_tensors
+
     before = {p: t.clone() for p, t in state_tensors(s.state)}
     t0 = time.perf_counter()
     out = io.StringIO()
@@ -2581,6 +2593,340 @@ def custom_device(torch, s, reps=10):
     return dev
 
 
+# phase 14, the rest of the API: the tuners' bound on K, the insertion's
+# layers and its downward speed
+REST_MAX_K = 52
+REST_LAYERS = 4
+REST_V = 1.0
+
+
+def c_against_plain(torch, s, bin_factor=None):
+    """Kernel C on the search inputs of solver `s`'s next refresh (at
+    `bin_factor`, else the engine's), against the plain sweep on the same
+    sorted table: (identical pair table and count, pairs, max bin
+    occupancy, the table and its search arguments)."""
+    from dem_engine_tpu_torch.ops import binning, sweep
+    from dem_engine_tpu_torch.solver import ss_search_inputs
+
+    bf = s.engine.bin_factor if bin_factor is None else bin_factor
+    st = s.state
+    params = s.params.replace(
+        max_drift=torch.tensor(s.GetUpdateFreq(), dtype=torch.int32,
+                               device=DEVICE),
+        bin_factor=torch.tensor(bf, dtype=torch.float32, device=DEVICE))
+    q = ss_search_inputs(st, params, s._voxel_size)
+    S = st.spheres.n
+    tab = binning.build_sphere_table(q["pos_cd"], q["reach"], q["owner"],
+                                     q["family"], q["bin_size"], q["nb_cd"],
+                                     S)
+    cap = s.engine.cfg.cap_ss
+    args = (tab, S, q["family_mask"], q["nb_cd"], cap)
+    ka, kb, kn = sweep.sweep_table_cuda(*args)
+    mpb = int(tab.max_occ)
+    pa, pb, pn = binning.sweep_table(*args, mpb)
+    same = (int(kn) == int(pn) and torch.equal(ka, pa)
+            and torch.equal(kb, pb))
+    return same, int(kn), mpb, args
+
+
+def max_speed(s):
+    """The largest owner speed of solver `s`, m/s."""
+    return float(np.linalg.norm(s.GetOwnerVelocity(), axis=1).max())
+
+
+def owner_z(torch, s, ids, top=False):
+    """Lowest sphere bottom (LBF-relative z) of the owners `ids`; with
+    `top`, their highest sphere top."""
+    from dem_engine_tpu_torch.solver import sphere_world_pos
+
+    st = s.state
+    pos = sphere_world_pos(st.owners, st.spheres, s._voxel_size)
+    sel = torch.isin(st.spheres.owner.long(),
+                     torch.as_tensor(ids, device=DEVICE))
+    if top:
+        return float((pos[sel, 2] + st.spheres.radius[sel]).max())
+    return float((pos[sel, 2] - st.spheres.radius[sel]).min())
+
+
+def phase_rest(torch, n_clumps, k, tune_steps=3200, steps=250,
+               insert_steps=1000, resize_steps=50):
+    """Phase 14: the rest of the API on one DEMSolver of the API's mono
+    lattice (unique fetch off): (a) the tuners, (b) a checkpoint, (c)
+    UpdateClumps, (d) PurgeFamily, (e) ChangeClumpSizes. Returns the
+    solver and kernel C's search arguments at the largest bin factor the
+    tuner visited and at 1.0, for the profiled part of the run."""
+    import shutil
+    import tempfile
+
+    from dem_engine_tpu_torch import Engine
+    from dem_engine_tpu_torch.cases import R, bed_geometry
+    from dem_engine_tpu_torch.state import state_tensors
+
+    h = API_H
+    torch.cuda.empty_cache()
+    s = api_solver(n_clumps, k, 0)
+    eng = s.engine
+    events = []
+    sink = eng.log
+
+    def capture(level, msg):
+        events.append((level, msg))
+        sink(level, msg)
+
+    eng.log = capture
+    vs = s._voxel_size
+
+    # (a) the tuners -----------------------------------------------------
+    s.UseAdaptiveUpdateFreq()
+    s.UseAdaptiveBinSize()
+    s.SetCDMaxUpdateFreq(REST_MAX_K)
+    lost0 = int(s.state.lost_contacts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.DoDynamics(tune_steps * h)
+    dt = time.perf_counter() - t0
+    blocks = eng.blocks
+    for i, b in enumerate(blocks):
+        print(f"[rest] tuners: block {i + 1} K={b['k']} bin factor "
+              f"{b['bin_factor']:g}: {b['per'] * 1e3:.3f} ms/step by "
+              f"events; ss.count {b['ss_count']}/{b['cap_ss']}, grows "
+              f"{b['grows']}{'' if b['counted'] else ' (not counted)'}"
+              f"{', re-tuned' if b['retuned'] else ''}; next K="
+              f"{b['k_next']} bin factor {b['bin_next']:g}", flush=True)
+    ks = ({b["k"] for b in blocks}
+          | {b["k_next"] for b in blocks if b["k_next"]})
+    bfs = ({b["bin_factor"] for b in blocks}
+           | {b["bin_next"] for b in blocks})
+    lost = int(s.state.lost_contacts) - lost0
+    moves = [m for lvl, m in events if m.startswith("adaptive")]
+    print(f"[rest] tuners: {tune_steps} steps in {dt:.2f} s "
+          f"({dt * 1e3 / tune_steps:.3f} ms/step), {len(blocks)} blocks, "
+          f"K visited {sorted(ks)}, bin factors {sorted(bfs)}, "
+          f"{len(moves)} moves logged, GetUpdateFreq {s.GetUpdateFreq()}, "
+          f"contacts lost {lost}, max |v| {max_speed(s):.4f} m/s", flush=True)
+    if len(ks) < 2 or len(bfs) < 2:
+        fail(f"a tuner never moved: K {sorted(ks)}, bin {sorted(bfs)}")
+    if not (ks <= set(Engine.K_LADDER) and max(ks) <= REST_MAX_K
+            and bfs <= set(Engine.BIN_LADDER)):
+        fail(f"a tuner left its ladder: K {sorted(ks)}, bin {sorted(bfs)}")
+    if lost:
+        fail(f"{lost} contacts lost their history under the tuners")
+    physics(torch, s.state, vs, "rest tuners")
+    bf_max = max(bfs)
+    if bf_max == 1.0:
+        s.SetBinSize(2.2 * s._bin_floor())
+        bf_max = s.engine.bin_factor
+    c_tabs = {}
+    for bf in (bf_max, 1.0):
+        same, n_pairs, mpb, args = c_against_plain(torch, s, bf)
+        c_tabs[bf] = args
+        print(f"[rest] C at bin factor {bf:g}: {n_pairs} pairs, max bin "
+              f"occupancy {mpb}, identical to the plain sweep {same}",
+              flush=True)
+        if not same:
+            fail(f"kernel C differs from the plain sweep at bin factor {bf}")
+
+    # (b) the checkpoint, tuners off --------------------------------------
+    s.DisableAdaptiveUpdateFreq()
+    s.UseAdaptiveBinSize(False)
+    d = tempfile.mkdtemp(prefix="rest_ckpt_")
+    try:
+        path = os.path.join(d, "state.npz")
+        saved = {p: t.clone() for p, t in state_tensors(s.state)}
+        t0 = time.perf_counter()
+        s.SaveCheckpoint(path)
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        s.DoDynamics(steps * h)
+        p1 = s.GetOwnerPosition()
+        t0 = time.perf_counter()
+        s.LoadCheckpoint(path)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        back = [p for p, t in state_tensors(s.state)
+                if not torch.equal(t, saved[p])]
+        s.DoDynamics(steps * h)
+        p2 = s.GetOwnerPosition()
+        err = float(np.abs(p1 - p2).max()) / R
+        fresh = api_solver(n_clumps, k, 0)
+        fresh.LoadCheckpoint(path)
+        fresh_diff = [p for p, t in state_tensors(fresh.state)
+                      if not torch.equal(t, saved[p])]
+        fresh.DoDynamics(k * h)
+        fresh_ok = bool(np.isfinite(fresh.GetOwnerVelocity()).all())
+        del fresh
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"[rest] checkpoint: {len(saved)} tensors, {size} bytes (cap_ss "
+          f"{eng.cfg.cap_ss}, cap_sa {eng.cfg.cap_sa}), saved in "
+          f"{t_save:.2f} s, loaded in {t_load:.2f} s; after the load "
+          f"{len(back)} tensors differ from the saved; the {steps}-step "
+          f"replay: max |P1 - P2| = {err:.3e} R, identical "
+          f"{bool(np.array_equal(p1, p2))}; a fresh solver: {len(fresh_diff)}"
+          f" tensors differ, its chunk finite {fresh_ok}", flush=True)
+    del saved
+    if back or fresh_diff or err > 1e-3 or not fresh_ok:
+        fail("the checkpoint did not restore the run")
+
+    # (c) UpdateClumps: layers on the bed's pitch, 0.5 R above the live
+    # bed's highest sphere (the lattice starts 0.01 R overlapped and
+    # dilates, so its top has risen since Initialize) ---------------------
+    geo = bed_geometry(n_clumps)
+    dims = geo["dims"]
+    pos = geo["pos"]
+    layer = pos[pos[:, 2] == pos[:, 2].max()]
+    all_ids = np.arange(s.GetNumOwners())
+    top = owner_z(torch, s, all_ids, top=True)
+    dz = 3.99 * R
+    # a clump's lowest sphere bottom lies 2 R below its centre
+    new = np.concatenate([layer * [1.0, 1.0, 0.0]
+                          + [0.0, 0.0, top + 2.5 * R + j * dz]
+                          for j in range(REST_LAYERS)]) - dims / 2
+    n0, s0, c0 = s.GetNumOwners(), s.GetNumSpheres(), s.GetNumClumps()
+    b = s.AddClumps(s._templates[0], new)
+    b.SetFamilies(2)
+    b.SetVel([0.0, 0.0, -REST_V])
+    # the bed's cap_ss holds 1.25x its count after maybe_shrink, more than
+    # the layers add: cut it to the live count (512-aligned), so that the
+    # insertion's contacts must grow the table through grow_for
+    cnt = int(s.state.ss.count)
+    cap = -(-cnt // 512) * 512
+    eng.cfg = dataclasses.replace(eng.cfg, cap_ss=cap)
+    s.state = s.state.replace(ss=s.state.ss.shrunk(cap))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s.UpdateClumps()
+    torch.cuda.synchronize()
+    t_upd = time.perf_counter() - t0
+    new_ids = np.arange(n0, n0 + len(new))
+    z0 = owner_z(torch, s, new_ids)
+    counts = (s.GetNumOwners() - n0, s.GetNumSpheres() - s0,
+              s.GetNumClumps() - c0)
+    events.clear()
+    grows0, attempts0 = eng.timers["grows"], eng.refresh_attempts
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    s.DoDynamics(insert_steps * h)
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    refreshes = eng.refresh_attempts - attempts0
+    mem = torch.cuda.max_memory_allocated()
+    grows = eng.timers["grows"] - grows0
+    logged = [m for lvl, m in events if lvl == "STEP_METRIC"
+              and m.startswith("capacity/strategy growth")]
+    z1 = owner_z(torch, s, new_ids)
+    same, n_pairs, mpb, _ = c_against_plain(torch, s)
+    expect = {"A": 2 * insert_steps, "B": insert_steps, "B-extras": 0,
+              "B-ub": 0, "C": refreshes, "D": 0, "lists": 0}
+    print(f"[rest] UpdateClumps: {len(new)} clumps in {REST_LAYERS} layers "
+          f"at {REST_V} m/s down from {top / R + 0.5:.3f} R (the bed's "
+          f"highest sphere top {top / R:.3f} R, its lattice's "
+          f"{(pos[:, 2].max() + 2 * R) / R:.3f} R), {t_upd * 1e3:.1f} ms; "
+          f"owners +{counts[0]}"
+          f", spheres +{counts[1]}, clumps +{counts[2]}; cap_ss cut to "
+          f"{cap} for the count {cnt}; {insert_steps} steps in {dt:.2f} s "
+          f"({dt * 1e3 / insert_steps:.3f} ms/step), growths {grows} "
+          f"(logged at STEP_METRIC {len(logged)}: {logged[:2]}), cap_ss "
+          f"{eng.cfg.cap_ss}, ss.count {int(s.state.ss.count)}; peak memory "
+          f"{mem / 2**30:.2f} GiB; the layer's lowest z {z0 / R:.3f} R -> "
+          f"{z1 / R:.3f} R; C on the grown table: {n_pairs} pairs, "
+          f"identical {same}; max |v| {max_speed(s):.4f} m/s", flush=True)
+    print(f"[rest] launches {launches}, expected {expect} ({refreshes} "
+          f"refresh attempts)", flush=True)
+    if counts != (len(new), 3 * len(new), len(new)):
+        fail(f"UpdateClumps added {counts}")
+    if not (grows >= 1 and len(logged) == grows):
+        fail("the insertion did not grow the SS table, or its growths "
+             "were not logged at STEP_METRIC")
+    if launches != expect or not same or not z1 < z0:
+        fail("the run after UpdateClumps")
+    physics(torch, s.state, vs, "rest insert")
+
+    # (d) PurgeFamily(2), with the JAX package's rule evaluated here ------
+    fam = s.GetOwnerFamily()
+    nc = s.GetNumClumps()
+    keep = ~((fam == 2) & (np.arange(len(fam)) < nc))
+    o = s.state.owners
+    vox, loc = o.vox.clone(), o.loc.clone()
+    keep_t = torch.as_tensor(keep, device=DEVICE)
+    t0 = time.perf_counter()
+    s.PurgeFamily(2)
+    torch.cuda.synchronize()
+    t_purge = time.perf_counter() - t0
+    st = s.state
+    n_left = s.GetNumOwners()
+    bit = (torch.equal(st.owners.vox, vox[keep_t])
+           and torch.equal(st.owners.loc, loc[keep_t]))
+    sph_ok = (int(st.spheres.owner.max()) < n_left
+              and st.spheres.n == 3 * s.GetNumClumps())
+    del vox, loc
+    s.DoDynamics(k * h)
+    same, n_pairs, _, _ = c_against_plain(torch, s)
+    print(f"[rest] PurgeFamily(2): {t_purge * 1e3:.1f} ms; the rule keeps "
+          f"{int(keep.sum())} owners (family 2 below GetNumClumps() {nc} "
+          f"purged; {int(((fam == 2) & keep).sum())} inserted clump(s) at "
+          f"or past it kept), the solver has {n_left}, clumps "
+          f"{s.GetNumClumps()}, spheres {st.spheres.n}; no sphere names a "
+          f"purged owner {sph_ok}; kept owners' positions bit for bit "
+          f"{bit}; after one chunk C: {n_pairs} pairs, identical {same}; "
+          f"max |v| {max_speed(s):.4f} m/s", flush=True)
+    if not (n_left == int(keep.sum()) and sph_ok and bit and same):
+        fail("PurgeFamily")
+
+    # (e) ChangeClumpSizes of every tenth clump ---------------------------
+    ids = np.arange(0, s.GetNumClumps(), 10)
+    sph = s.state.spheres
+    r0, rel0 = sph.radius.clone(), sph.relpos.clone()
+    s.ChangeClumpSizes(ids, 0.95)
+    fac = torch.ones(s.GetNumOwners(), device=DEVICE)
+    fac[torch.as_tensor(ids, device=DEVICE)] = 0.95
+    per = fac[sph.owner.long()]
+    sph = s.state.spheres
+    exact = (torch.equal(sph.radius, r0 * per)
+             and torch.equal(sph.relpos, rel0 * per[:, None]))
+    s.DoDynamics(resize_steps * h)
+    vmax = max_speed(s)
+    v_bound = REST_V + float(np.sqrt(2 * 9.81 * dims[2]))
+    same, n_pairs, _, _ = c_against_plain(torch, s)
+    print(f"[rest] ChangeClumpSizes: {len(ids)} clumps by 0.95, radii and "
+          f"offsets scaled exactly {exact}; {resize_steps} steps: max |v| "
+          f"{vmax:.4f} m/s (bound {v_bound:.3f}: the insertion speed plus "
+          f"a fall through the domain), C: {n_pairs} pairs, identical "
+          f"{same}", flush=True)
+    if not (exact and vmax < v_bound and same):
+        fail("ChangeClumpSizes")
+    physics(torch, s.state, vs, "rest resize")
+    dyn = s.GetDeviceMemUsageDynamic()
+    kin = s.GetDeviceMemUsageKinematic()
+    print(f"[rest] memory getters: state {dyn / 2**20:.1f} MiB, a refresh "
+          f"beyond it {kin / 2**20:.1f} MiB, reserved "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB", flush=True)
+    eng.log = sink
+    return s, c_tabs
+
+
+def rest_device(torch, c_tabs, reps=10):
+    """Kernel C's device time (torch.profiler) on the tuned bed's table at
+    the largest bin factor visited and at 1.0; each search one memset and
+    one launch. Returns {bin factor: (device ms, launches, bound)}."""
+    from dem_engine_tpu_torch.ops import sweep
+
+    out = {}
+    for bf, args in c_tabs.items():
+        n = int(sweep.sweep_table_cuda(*args)[2])
+        bnd = bound(*bytes_C(args[0], args[4], n))
+        rows, _ = profiled_calls(torch, lambda: sweep.sweep_table_cuda(*args),
+                                 reps, 2, f"C at bin factor {bf:g}")
+        dev = sum(r[0] for r in rows)
+        cnt = sum(r[1] for r in rows)
+        print(f"[rest device] C at bin factor {bf:g}: {dev:.4f} ms in {cnt} "
+              f"launches, {n} pairs; bound {bnd[0]:.4f} ms ({bnd[1]}), "
+              f"{dev / bnd[0]:.2f}x", flush=True)
+        out[bf] = (dev, cnt, bnd)
+    return out
+
+
 KERNELS = {
     "A": ("segment_sum", "dem_engine_tpu_torch/csrc/segred.cu",
           "dem_engine_tpu/ops/pallas_segred.py:165"),
@@ -2600,7 +2946,7 @@ KERNELS = {
               "dem_engine_tpu/ops/forces.py:165 _uniq_layout"),
 }
 PHASES = ("kernels", "parity", "main", "poly", "breakdown", "api",
-          "families", "uniq", "output", "custom", "bonded")
+          "families", "uniq", "output", "custom", "bonded", "rest")
 
 
 def main():
@@ -2648,6 +2994,12 @@ def main():
         phase_custom(torch, args.clumps, args.k, args.steps)
     if "bonded" in phases:
         phase_bonded(torch, bond_side(args.clumps), args.k, args.steps)
+    rest = None
+    if "rest" in phases:
+        t0 = time.perf_counter()
+        rest = phase_rest(torch, args.clumps, args.k, steps=args.steps)
+        print(f"[rest] phase 14 (timed part): "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
     # torch.profiler only from here on, so that no timed run follows a
     # profile in its process; the breakdowns settle their beds anew, so
     # no timed run shares the card's memory with them either
@@ -2706,6 +3058,14 @@ def main():
         del s
     if "output" in phases:
         phase_output_device(torch, args.clumps, args.k)
+    if rest:
+        s, c_tabs = rest
+        rest_device(torch, c_tabs)
+        del c_tabs
+        if "breakdown" in phases:
+            phase_breakdown(torch, s.engine, s.state, s.params, args.k,
+                            tag="rest breakdown")
+        del s, rest
     print(card)
     if kern and main_counts and api_counts:
         # each kernel's launches on the path that runs it: A, B and C on

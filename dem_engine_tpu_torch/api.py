@@ -4,14 +4,19 @@ The JAX package's ``DEMSolver``/``DEMTracker`` method names and
 behaviour, for the subset this package runs: clumps of spheres,
 analytical boundaries and triangle meshes (deformable through their
 trackers), the two-class CD of polydisperse beds, the built-in Hertz
-models, a fixed CD cadence, family prescriptions (fixed, prescribed and
+models, family prescriptions (fixed, prescribed and
 corrected families, added accelerations), family-change rules, the
 family contact masks and the owner-state setters; the read side:
 inspectors (device reductions that send one scalar to the host), clump,
 contact, sphere and mesh files with their CSV readers, the read-only
 getters and tracker reads, and the timing statistics
-(``ShowTimingStats``, ``ProfileStageTimings``). Persistency,
-checkpoints, custom force models and wildcards are not here yet.
+(``ShowTimingStats``, ``ProfileStageTimings``); custom force models,
+wildcards, persistency and restart contacts; and the calls that change
+a run mid-way: checkpoints (``SaveCheckpoint``/``LoadCheckpoint``),
+insertion (``UpdateClumps``), ``PurgeFamily``, ``ChangeClumpSizes``,
+and the adaptive CD cadence and bin size (``UseAdaptiveUpdateFreq``,
+``UseAdaptiveBinSize``, ``SetBinSize``). The memory getters report the
+card's own counts (``GetDeviceMemUsageDynamic``).
 
 A prescription or rule given as a callable receives the step's start
 time `t` as a 0-d float32 tensor on the solver's device and must
@@ -50,6 +55,7 @@ and unique fetch is off, as the JAX package runs on its CPU.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import time as _time
 import warnings
@@ -68,6 +74,8 @@ from .defines import (
     Verbosity,
 )
 from .initializer import (
+    concat_owners,
+    empty_ss_table,
     make_analyticals,
     make_owners,
     make_params,
@@ -75,6 +83,8 @@ from .initializer import (
     make_state,
     make_triangles,
     resolve_device,
+    ss_uniq_rows,
+    uniq_fields,
 )
 from .models import HertzianForceModel, HertzianFrictionlessForceModel
 from .models.force_model import ForceModel
@@ -90,8 +100,7 @@ from .ops import binning, forces, quat
 from .ops.fused_force import fused_step_ss
 from .ops.voxel import choose_voxel_size, decode_host, encode_host
 from .solver import Engine, sphere_pos_margins, sphere_world_pos
-from .initializer import empty_ss_table
-from .state import SolverConfig
+from .state import SolverConfig, Spheres, map_tensors, state_tensors
 from .structs import (
     DEMClumpBatch,
     DEMClumpTemplate,
@@ -576,6 +585,13 @@ class DEMSolver:
         self._error_out_avg_contacts = defines.DEFAULT_ERROR_OUT_AVG_CONTACTS
         self._verbosity = Verbosity.INFO
         self._uniq_cap = 0  # unique fetch off unless SetFusedUniqueFetch
+        # the adaptive CD cadence and bin size, handed to the engine at
+        # Initialize (SetCDMaxUpdateFreq, SetInitBinSize, ...)
+        self._adaptive_freq = False
+        self._max_update_freq = None
+        self._use_adaptive_bin = False
+        self._init_bin_size = None
+        self._init_max_per_bin = None
         # staging
         self._materials: List[DEMMaterial] = []
         self._pair_overrides: Dict[tuple, float] = {}
@@ -616,9 +632,10 @@ class DEMSolver:
         self._initialized = False
         self._n_clump_owners = 0
         self._lost_reported = 0
-        # per clump owner: its template (an index into _owner_templates)
-        # and volume; _volume_dev is the volumes on the device, f32, zero
-        # past the clumps
+        # per owner: its template (an index into _owner_templates, -1 for
+        # an analytical or mesh owner); per clump, in insertion order: its
+        # volume; _volume_dev is the volumes on the device, f32, zero past
+        # the clumps
         self._owner_templates: List[DEMClumpTemplate] = []
         self._owner_tmpl_idx = np.zeros(0, np.int64)
         self._owner_volume = np.zeros(0)
@@ -680,6 +697,37 @@ class DEMSolver:
         if self._initialized:
             self._rebuild_params()
 
+    def SetCDMaxUpdateFreq(self, freq: int):
+        """Upper bound of the adaptive CD cadence: with it on, K never
+        exceeds `freq`."""
+        self._max_update_freq = int(freq)
+        if self.engine is not None:
+            self.engine.max_freq = self._max_update_freq
+
+    def UseAdaptiveUpdateFreq(self, flag: bool = True):
+        """Tune the CD cadence K from the measured time of each block of
+        chunks (``solver.Engine``): K walks ``Engine.K_LADDER`` toward the
+        cheapest seconds per step, below SetCDMaxUpdateFreq."""
+        self._adaptive_freq = bool(flag)
+        if self._initialized:
+            self.engine.auto_freq = self._adaptive_freq
+
+    def DisableAdaptiveUpdateFreq(self):
+        """Pin the CD cadence to the SetCDUpdateFreq setting."""
+        self.UseAdaptiveUpdateFreq(False)
+
+    def SetCDNumStepsMaxDriftAheadOfAvg(self, *a, **k):
+        """Kept for source compatibility: the refresh and the steps run in
+        order on one stream, so there is no drift ahead to bound."""
+
+    def SetCDNumStepsMaxDriftHistorySize(self, n):
+        """Kept for source compatibility: the K tuner keeps per-rung
+        averages of seconds per step (``Engine._k_perf``), not a drift
+        history."""
+
+    def SetCDNumStepsMaxDriftMultipleOfAvg(self, m):
+        pass  # see SetCDNumStepsMaxDriftHistorySize
+
     def SetFusedUniqueFetch(self, cap: int = 1024):
         """Unique-other-owner fetch of the force pass (kernel B-ub): per
         block of 128 owners the step reads each distinct other owner's
@@ -699,6 +747,95 @@ class DEMSolver:
         """Stored only, as the JAX package does: the ST sweep's span
         starts at 4 bins per axis and doubles on overflow up to 32."""
         self._init_max_tri_span = max(2, int(n) // 8)
+
+    def SetMaxSphereInBin(self, n: int):
+        """Stored only, as the JAX package does: the ST sweep's per-bin
+        scan starts at its default and grows on overflow (OVF_ST_OCC), and
+        kernel C keeps any number of spheres per bin."""
+        self._init_max_per_bin = int(n)
+
+    # Bin sizing: the cell floor is 2 x the largest reach, recomputed at
+    # every refresh; the knobs below set a factor over that floor
+    # (Engine.bin_factor). A request below the floor is clamped to it
+    # with a warning: a smaller cell would miss pairs in this design.
+    def _bin_floor(self) -> float:
+        """2.02 x the largest sphere reach: the live margins once
+        initialized, the largest template radius before."""
+        if self._initialized and self.state.spheres.n:
+            st = self.state
+            _, margin, _, _ = sphere_pos_margins(
+                st.owners, st.spheres, self.params, self._voxel_size)
+            return 2.02 * float((st.spheres.radius + margin).max())
+        r = [float(np.max(t.radii)) for t in self._templates if len(t.radii)]
+        return 2.02 * max(r) if r else 0.0
+
+    def _apply_bin_size(self, s: float):
+        floor = self._bin_floor()
+        if floor <= 0:
+            return
+        f = float(s) / floor
+        if f < 0.999:
+            warnings.warn(
+                f"SetBinSize/SetInitBinSize: requested bin {s:.3e} is "
+                f"below the one-bin-per-sphere floor {floor:.3e} "
+                "(2 x max sphere reach); clamping to the floor. Bins "
+                "smaller than the largest sphere's reach would miss "
+                "contacts in this CD design.")
+        if self.engine is not None:
+            self.engine.bin_factor = max(1.0, f)
+            self.engine._bin_perf.clear()
+
+    def SetInitBinSize(self, s):
+        """Seed the (adaptive) bin size with a cell size."""
+        self._init_bin_size = float(s)
+        if self._initialized:
+            self._apply_bin_size(s)
+
+    def SetBinSize(self, s):
+        """Fix the bin size; turns the adaptive bin tuner off."""
+        self._init_bin_size = float(s)
+        self._use_adaptive_bin = False
+        if self._initialized:
+            self._apply_bin_size(s)
+            self.engine.auto_bin = False
+
+    def SetInitBinNumTarget(self, n):
+        """Seed the bin size from a target number of bins in the
+        domain."""
+        n = max(int(n), 1)
+        vol = float(np.prod(np.asarray(self._dims, np.float64)))
+        self.SetInitBinSize((vol / n) ** (1.0 / 3.0))
+
+    def UseAdaptiveBinSize(self, flag: bool = True):
+        """Walk the bin-size factor along ``Engine.BIN_LADDER`` toward the
+        cheapest measured seconds per step, as the K tuner walks K."""
+        self._use_adaptive_bin = bool(flag)
+        if self._initialized:
+            self.engine.auto_bin = bool(flag)
+
+    def DisableAdaptiveBinSize(self):
+        """Kept for source compatibility and, as in the JAX package, does
+        nothing: UseAdaptiveBinSize(False) or SetBinSize turns the bin
+        tuner off."""
+
+    def SetAdaptiveBinSizeDelaySteps(self, n):
+        pass  # the bin tuner moves per measured block, not after a delay
+
+    def SetAdaptiveBinSizeAcc(self, acc):
+        pass  # see DisableAdaptiveBinSize
+
+    def SetAdaptiveBinSizeMaxRate(self, rate):
+        pass  # see DisableAdaptiveBinSize
+
+    def SetAdaptiveBinSizeLowerProactivity(self, p):
+        pass  # see DisableAdaptiveBinSize
+
+    def SetAdaptiveBinSizeUpperProactivity(self, p):
+        pass  # see DisableAdaptiveBinSize
+
+    def SetInitBinSizeAsMultipleOfSmallestSphere(self, m):
+        """Kept for source compatibility: the grid follows the largest
+        reach, and the two-class CD takes wide size ratios."""
 
     def SetExpandSafetyMultiplier(self, m: float):
         self._expand_multi = float(m)
@@ -727,6 +864,56 @@ class DEMSolver:
         self._error_out_avg_contacts = float(n)
         if self._initialized:
             self._rebuild_params()
+
+    def SetExpandFactor(self, beta: float, fix: bool = True):
+        """A fixed CD margin: with `fix`, margins stop following the
+        velocity and take the constant length `beta`."""
+        self._expand_adder = float(beta)
+        if fix:
+            self._expand_multi = 0.0
+        if self._initialized:
+            self._rebuild_params()
+
+    def GetExpandFactor(self) -> float:
+        """The fixed CD margin length."""
+        return float(self._expand_adder)
+
+    def SetExpandSafetyType(self, kind: str = "auto"):
+        """Kept for source compatibility: margins always follow each
+        sphere's measured velocity at the refresh (``sphere_pos_margins``),
+        which is what 'auto' asks for."""
+
+    def SetAdaptiveTimeStepType(self, type: str = "none"):
+        """Kept for source compatibility: the step size is fixed (the
+        reference warns and keeps it fixed too)."""
+
+    # source-compatibility switches with nothing to switch here
+    def SetJitifyClumpTemplates(self, flag: bool = True):
+        pass  # templates are always flattened arrays
+
+    def SetJitifyMassProperties(self, flag: bool = True):
+        pass
+
+    def SetSortContactPairs(self, flag: bool):
+        pass  # tables are always sorted by owner pair at the refresh
+
+    def EnsureKernelErrMsgLineNum(self, flag: bool = True):
+        pass  # kernels are built ahead of time, not from strings
+
+    def SetNoForceRecord(self, flag: bool = True):
+        pass  # forces are recorded in the tables or on request
+
+    def SetForceCalcThreadsPerBlock(self, n):
+        pass  # each kernel picks its own launch shape
+
+    def SetCollectAccRightAfterForceCalc(self, flag: bool = True):
+        """Kept for source compatibility: the force pass always sums the
+        wrenches per owner right after it (kernel A), as this asks."""
+
+    def GetWhetherForceCollectInKernel(self) -> bool:
+        """True: the wrenches are summed per owner in a kernel (A) right
+        after the force pass, the only mode here."""
+        return True
 
     # ------------------------------------------------------------------
     # output settings
@@ -832,6 +1019,10 @@ class DEMSolver:
         return self.LoadClumpType(mass, (i, i, i), [radius], np.zeros((1, 3)),
                                   material)
 
+    def LoadClumpTemplate(self, template: DEMClumpTemplate):
+        self._templates.append(template)
+        return template
+
     def AddClumps(self, templates, xyz) -> DEMClumpBatch:
         xyz = np.asarray(xyz, np.float64).reshape(-1, 3)
         if isinstance(templates, DEMClumpTemplate):
@@ -889,6 +1080,7 @@ class DEMSolver:
             self.engine.cfg = dataclasses.replace(
                 self.engine.cfg,
                 prescriptions=tuple(self._prescriptions.values()))
+            self.engine._config_changed()
 
     def SetFamilyFixed(self, family: int):
         self._merge_presc(_fixed_prescription(family))
@@ -1298,6 +1490,7 @@ class DEMSolver:
         if self._initialized and not self.engine.cfg.use_persistency:
             self.engine.cfg = dataclasses.replace(self.engine.cfg,
                                                   use_persistency=True)
+            self.engine._config_changed()
 
     def _set_persist(self, value: int, famA=None, famB=None, both=False):
         """Mark (1) or unmark (0) the contacts that exist now, once: no
@@ -1389,6 +1582,10 @@ class DEMSolver:
         t = DEMTracker(self, [], obj)
         self._pending_trackers.append(t)
         return t
+
+    def PythonTrack(self, obj) -> DEMTracker:
+        """Track, under the reference's name for python callers."""
+        return self.Track(obj)
 
     def _make_tracker(self, obj):
         if isinstance(obj, DEMClumpBatch):
@@ -1537,7 +1734,6 @@ class DEMSolver:
             oid += 1
         n_ext = len(self._extern_objs) + len(self._meshes)
         n_owners = oid
-        oid_clumps = self._n_clump_owners
         if n_owners == 0:
             raise RuntimeError("nothing to simulate: add clumps first")
 
@@ -1630,12 +1826,20 @@ class DEMSolver:
         self.state = make_state(owners, spheres, cfg, tris=tris,
                                 anals=anals)
         cfg = self._seed_existing_contacts(cfg)
-        vol = np.zeros(n_owners, np.float32)
-        vol[:oid_clumps] = self._owner_volume
-        self._volume_dev = torch.as_tensor(vol, device=self.device)
+        # per owner: its template, -1 past the clumps
+        self._owner_tmpl_idx = np.concatenate(
+            [self._owner_tmpl_idx, np.full(n_ext, -1, np.int64)])
+        self._set_volume_dev()
         self.engine = Engine(cfg)
+        self.engine.auto_freq = self._adaptive_freq
+        self.engine.max_freq = self._max_update_freq
+        self.engine.auto_bin = self._use_adaptive_bin
+        # the engine's growth and tuner events go to the verbosity sink
+        self.engine.log = self._engine_log
         self._rebuild_params()
         self._initialized = True
+        if self._init_bin_size:
+            self._apply_bin_size(self._init_bin_size)
         for t in self._pending_trackers:
             t.owner_ids = self._make_tracker(t.obj).owner_ids
         self._engine_log(
@@ -1646,6 +1850,16 @@ class DEMSolver:
         if dry_run:
             self.state = self.engine.refresh(self.state, self.params)
         return self
+
+    def _set_volume_dev(self):
+        """The inspectors' per-owner volumes on the device: the clumps'
+        volumes in order from owner 0, zero after them. After UpdateClumps
+        the inserted clumps' volumes follow the first clumps' in that
+        order, as in the JAX package, not at their owner ids."""
+        vol = np.zeros(self.state.owners.n, np.float32)
+        m = min(len(self._owner_volume), len(vol))
+        vol[:m] = self._owner_volume[:m]
+        self._volume_dev = torch.as_tensor(vol, device=self.device)
 
     def _seed_existing_contacts(self, cfg):
         """Restart contacts (``SetExistingContacts``, sphere ids local to
@@ -1806,6 +2020,160 @@ class DEMSolver:
             self._clear_next_step_acc()
         self._n_steps_done += 1
 
+    def DoDynamicsThenSync(self, duration: float):
+        self.DoDynamics(duration)
+
+    def SyncMemoryTransfer(self):
+        """Wait until the work queued on the card is done."""
+        self._sync()
+
+    def UpdateSimParams(self):
+        self._rebuild_params()
+
+    def InstructNumOwners(self, n: int):
+        """An owner-count hint: capacities here follow what Initialize
+        loads and grow on overflow, so it is not needed."""
+
+    # ------------------------------------------------------------------
+    # changes of the clump set mid-run
+    # ------------------------------------------------------------------
+    def UpdateClumps(self):
+        """Insert the batches staged by AddClumps after Initialize into
+        the running simulation. The new clumps take owner ids after every
+        owner there is (the analytical and mesh owners too) and sphere ids
+        after every sphere, so the contact tables keep their rows; the
+        next refresh finds the new pairs and grows a table that overflows
+        (``Engine.grow_for``). As in the JAX package, the new owners'
+        and spheres' wildcards start at zero."""
+        if not self._initialized:
+            raise RuntimeError("call Initialize() first")
+        pending = [b for b in self._batches if b.owner_offset is None]
+        if not pending:
+            return
+        model = self._force_model
+        st = self.state
+        n0, s0 = st.owners.n, st.spheres.n
+        parts = []
+        oid, n_sph = n0, s0
+        for b in pending:
+            b.owner_offset, b.sphere_offset = oid, n_sph
+            parts.append(self._flatten_batch(b, oid))
+            oid += b.n
+            n_sph += len(parts[-1]["s_owner"])
+
+        def cat(key, width=None):
+            a = np.concatenate([p[key] for p in parts])
+            return a if width is None else a.reshape(-1, width)
+
+        new_owners = make_owners(
+            pos=cat("pos", 3), voxel_size=self._voxel_size,
+            quat=cat("quat", 4), vel=cat("vel", 3), omg=cat("omg", 3),
+            family=cat("family"), mass=cat("mass"), moi=cat("moi", 3),
+            wildcards={k: np.zeros(oid - n0, np.float32)
+                       for k in model.owner_wildcards},
+            device=self.device)
+        new_spheres = make_spheres(
+            owner=cat("s_owner"), relpos=cat("s_rel", 3),
+            radius=cat("s_rad"), mat=cat("s_mat"),
+            wildcards={k: np.zeros(n_sph - s0, np.float32)
+                       for k in model.geo_wildcards},
+            device=self.device)
+        spheres = Spheres(
+            **{f: torch.cat([getattr(st.spheres, f),
+                             getattr(new_spheres, f)])
+               for f in ("owner", "relpos", "radius", "mat")},
+            wildcards={k: torch.cat([v, new_spheres.wildcards[k]])
+                       for k, v in st.spheres.wildcards.items()})
+        k0 = len(self._owner_templates)
+        self._owner_templates += [t for p in parts for t in p["kinds"]]
+        starts = k0 + np.cumsum([0] + [len(p["kinds"]) for p in parts])
+        self._owner_tmpl_idx = np.concatenate(
+            [self._owner_tmpl_idx]
+            + [p["t_idx"] + k for p, k in zip(parts, starts)])
+        self._owner_volume = np.concatenate(
+            [self._owner_volume] + [p["volume"] for p in parts])
+        self._n_clump_owners += oid - n0
+        self._resized(st.replace(owners=concat_owners(st.owners, new_owners),
+                                 spheres=spheres))
+
+    def _resized(self, state):
+        """Take `state`, whose owner or sphere count changed, and rebuild
+        what is keyed on those counts: the inspectors' volumes, the SS
+        table's unique-fetch lists (sized by the owner count; the next
+        refresh fills them) and the K tuner's measurements."""
+        cfg = self.engine.cfg
+        ss = state.ss
+        if cfg.uniq_cap:
+            ss = ss.replace(**uniq_fields(cfg, ss.cap, state.owners.n,
+                                          self.device))
+        self.state = state.replace(ss=ss)
+        self._set_volume_dev()
+        self._ss_query = None
+        self.engine._config_changed()
+
+    def PurgeFamily(self, family: int):
+        """Remove the clumps of `family`: among the owner ids below
+        GetNumClumps(), as the JAX package selects them, so after an
+        UpdateClumps the last inserted clumps, one for each analytical or
+        mesh owner, are not candidates. Owner ids are renumbered in the
+        spheres, triangles, analytical components and the trackers made
+        before Initialize; the contact tables start empty, as after
+        Initialize, so friction history and persistent rows are lost."""
+        if not self._initialized:
+            raise RuntimeError("call Initialize() first")
+        st = self.state
+        fam = _np(st.owners.family)
+        kill = (fam == family) & (np.arange(len(fam)) < self._n_clump_owners)
+        if not kill.any():
+            return
+        keep = ~kill
+        new_id = np.cumsum(keep) - 1
+        dev = self.device
+        keep_t = torch.as_tensor(keep, device=dev)
+        new_id_t = torch.as_tensor(new_id, dtype=defines.I, device=dev)
+
+        def remap(owner):
+            return new_id_t[owner.long()]
+
+        owners = map_tensors(st.owners, lambda p, t: t[keep_t])
+        s_keep = keep_t[st.spheres.owner.long()]
+        spheres = map_tensors(st.spheres, lambda p, t: t[s_keep])
+        spheres = spheres.replace(owner=remap(spheres.owner))
+        tris, anals = st.tris, st.anals
+        if tris.n:
+            tris = tris.replace(owner=remap(tris.owner))
+        if anals.n:
+            anals = anals.replace(owner=remap(anals.owner))
+        self.state = make_state(owners, spheres, self.engine.cfg, tris=tris,
+                                anals=anals).replace(time=st.time,
+                                                     step=st.step)
+        self._n_clump_owners -= int(kill.sum())
+        self._owner_volume = self._owner_volume[
+            keep[:len(self._owner_volume)]]
+        self._owner_tmpl_idx = self._owner_tmpl_idx[keep]
+        for tr in self._pending_trackers:
+            tr.owner_ids = np.asarray(
+                [new_id[i] for i in tr.owner_ids if keep[i]], np.int64)
+        self._resized(self.state)
+
+    def ChangeClumpSizes(self, owner_ids, factors):
+        """Scale the spheres of the clump owners `owner_ids` (radius and
+        offset from the owner's centre) by `factors`, on the device; mass
+        and MOI stay. The next refresh rebuilds the contact tables' radii
+        and premixed statics from the new sizes."""
+        if not self._initialized:
+            raise RuntimeError("call Initialize() first")
+        ids = np.asarray(owner_ids, np.int64).reshape(-1)
+        f = np.broadcast_to(np.asarray(factors, np.float32), ids.shape)
+        sph = self.state.spheres
+        fac = torch.ones(self.state.owners.n, dtype=defines.F,
+                         device=self.device)
+        fac[torch.as_tensor(ids, device=self.device)] = torch.as_tensor(
+            f.copy(), device=self.device)
+        per = fac[sph.owner.long()]
+        self.state = self.state.replace(spheres=sph.replace(
+            radius=sph.radius * per, relpos=sph.relpos * per[:, None]))
+
     # ------------------------------------------------------------------
     # getters
     # ------------------------------------------------------------------
@@ -1829,8 +2197,11 @@ class DEMSolver:
         return bool(self._initialized)
 
     def GetUpdateFreq(self) -> int:
-        """The CD cadence in effect: the setting (the port has no
-        adaptive cadence)."""
+        """The CD cadence in effect: the adaptive tuner's K when it is on
+        and has picked one, else the setting."""
+        eng = self.engine
+        if eng is not None and eng.auto_freq and eng.active_freq:
+            return int(eng.active_freq)
         return int(self._update_freq)
 
     def GetContactForceModel(self):
@@ -1844,13 +2215,15 @@ class DEMSolver:
 
     def _next_grid(self):
         """(bin size, bins per axis) of the next refresh's SS grid, from
-        the live margins as refresh_contacts computes them."""
+        the live margins and the engine's bin factor, as refresh_contacts
+        computes them."""
         st = self.state
         _, margin, _, _ = sphere_pos_margins(st.owners, st.spheres,
                                              self.params, self._voxel_size)
-        return binning.build_grid(self.params.domain,
-                                  (st.spheres.radius + margin).max(),
-                                  self.params.bin_factor)
+        return binning.build_grid(
+            self.params.domain, (st.spheres.radius + margin).max(),
+            torch.tensor(self.engine.bin_factor, dtype=defines.F,
+                         device=self.device))
 
     def GetBinSize(self) -> float:
         return float(self._next_grid()[0])
@@ -2158,9 +2531,11 @@ class DEMSolver:
         oc = self._out_content
         OC = defines.OutputContent
         o = st.owners
-        rows = torch.arange(self._n_clump_owners, device=self.device)
+        # the clump owners: after UpdateClumps they are no longer a prefix
+        rows = torch.as_tensor(np.nonzero(self._owner_tmpl_idx >= 0)[0],
+                               device=self.device)
         if self._no_output_families:
-            fam = o.family[:self._n_clump_owners]
+            fam = o.family[rows]
             rows = rows[~torch.isin(fam, torch.as_tensor(
                 sorted(self._no_output_families), dtype=fam.dtype,
                 device=self.device))]
@@ -2257,7 +2632,8 @@ class DEMSolver:
     def ShowTimingStats(self):
         """The DoDynamics totals and the engine's chunk timers: refreshes
         and steps timed by CUDA events on the card (the host clock on the
-        CPU), growths, shrinks and refresh retries; then the last
+        CPU), growths, shrinks and refresh retries, the bin factor, and
+        with a tuner on its measured ms/step per rung; then the last
         ProfileStageTimings table."""
         t = self.engine.read_timers()
         step_per = t["steps_s"] / t["steps_n"] * 1e3 if t["steps_n"] else 0.0
@@ -2274,11 +2650,21 @@ class DEMSolver:
             f"  ({t['steps_n']} steps, {step_per:.3f} ms/step; {clock})\n"
             f"  engine events     : grows={t['grows']} "
             f"shrinks={t['shrinks']} retries={t['retries']} "
-            f"bin_factor={float(self.params.bin_factor):.2f}")
+            f"bin_factor={self.engine.bin_factor:.2f}"
+            + (f"\n  adaptive CD freq  : K={self.engine.active_freq} "
+               f"measured {self._perf_ms(self.engine._k_perf)} ms/step"
+               if self.engine.auto_freq else "")
+            + (f"\n  adaptive bin      : measured "
+               f"{self._perf_ms(self.engine._bin_perf)} ms/step"
+               if self.engine.auto_bin else ""))
         if self._stage_timings:
             from .profiling import format_stages
 
             print(format_stages(self._stage_timings))
+
+    @staticmethod
+    def _perf_ms(perf):
+        return [(k, round(v * 1e3, 3)) for k, v in sorted(perf.items())]
 
     def ProfileStageTimings(self, reps: int = 2):
         """Time one refresh and one step of the current state at their
@@ -2306,3 +2692,162 @@ class DEMSolver:
         for a in self._anomalies:
             print("[anomaly]", a)
         return list(self._anomalies)
+
+    def ClearThreadCollaborationStats(self):
+        pass  # one stream runs the refresh and the steps: nothing to count
+
+    def ShowThreadCollaborationStats(self):
+        print(f"[collab] dynamics/CD ratio: {self._update_freq} (refresh "
+              f"and steps in order on one stream; no inter-worker waits)")
+
+    # ------------------------------------------------------------------
+    # memory
+    # ------------------------------------------------------------------
+    # The JAX package reports a model of the TPU's HBM use here; the port
+    # reports the card's own counts instead.
+    def GetDeviceMemUsageDynamic(self) -> int:
+        """Bytes of the state's tensors (owners, geometry, contact
+        tables)."""
+        return sum(t.numel() * t.element_size()
+                   for _, t in state_tensors(self.state))
+
+    def GetDeviceMemUsageKinematic(self) -> int:
+        """Device bytes a refresh takes beyond the state: the peak of
+        torch.cuda.max_memory_allocated over one refresh of the current
+        state, run here and thrown away (the state stays as it was; the
+        call resets the peak counter), less the state's bytes. 0 on the
+        CPU."""
+        if self.device.type != "cuda":
+            return 0
+        from .solver import refresh_contacts
+
+        dev = self.device
+        self._sync()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params_k = self.params.replace(
+            max_drift=torch.tensor(self.GetUpdateFreq(), dtype=defines.I,
+                                   device=dev),
+            bin_factor=torch.tensor(self.engine.bin_factor,
+                                    dtype=defines.F, device=dev))
+        refresh_contacts(self.state, params_k, self.engine.cfg)
+        self._sync()
+        peak = torch.cuda.max_memory_allocated(dev)
+        return max(0, peak - self.GetDeviceMemUsageDynamic())
+
+    def GetHostMemUsageDynamic(self) -> int:
+        return 0  # no host copy of the device state persists
+
+    def GetHostMemUsageKinematic(self) -> int:
+        return 0
+
+    def PrintKinematicScratchSpaceUsage(self):
+        print(f"[mem] CD refresh beyond the state: "
+              f"{self.GetDeviceMemUsageKinematic() / 1e6:.1f} MB")
+
+    def ShowMemStats(self):
+        """Print the state's bytes, a refresh's bytes beyond them
+        (GetDeviceMemUsageKinematic) and the allocator's reserved bytes
+        (0 on the CPU); returns the state's bytes."""
+        dyn = self.GetDeviceMemUsageDynamic()
+        kin = self.GetDeviceMemUsageKinematic()
+        res = (torch.cuda.memory_reserved(self.device)
+               if self.device.type == "cuda" else 0)
+        print(f"[mem] state tensors: {dyn / 1e6:.1f} MB")
+        print(f"[mem] CD refresh beyond the state: {kin / 1e6:.1f} MB")
+        print(f"[mem] reserved by the allocator: {res / 1e6:.1f} MB")
+        return dyn
+
+    def ClearCache(self):
+        """Nothing to free: the staged batches are consumed by Initialize
+        and UpdateClumps."""
+
+    def ReleaseFlattenedArrays(self):
+        pass  # no host staging copies persist after Initialize
+
+    # ------------------------------------------------------------------
+    # checkpoints
+    # ------------------------------------------------------------------
+    #: the engine settings a checkpoint restores with the tables: the
+    #: capacities that growth and shrinking move
+    CHECKPOINT_CAPS = ("cap_ss", "cap_st", "cap_sa", "max_per_bin",
+                       "max_tri_span", "st_bruteforce", "cross_lcap",
+                       "cross_mpb", "uniq_cap")
+
+    def SaveCheckpoint(self, path: str):
+        """The state, bit for bit, in one npz (``np.savez``, not
+        compressed): each tensor under its path (``state.state_tensors``),
+        and under ``__meta`` a JSON record of the time, the step, and the
+        engine's capacities and bin factor that the tables were built at.
+        The port's own format: the JAX package's files are not read."""
+        if not self._initialized:
+            raise RuntimeError("call Initialize() first")
+        cfg = self.engine.cfg
+        meta = dict(time=float(self.state.time), step=int(self.state.step),
+                    caps={k: getattr(cfg, k) for k in self.CHECKPOINT_CAPS},
+                    bin_factor=self.engine.bin_factor)
+        np.savez(path, __meta=np.asarray(json.dumps(meta)),
+                 **{p: _np(t) for p, t in state_tensors(self.state)})
+
+    def LoadCheckpoint(self, path: str):
+        """Restore a SaveCheckpoint file into this solver, set up as the
+        one that saved it. Every path, shape and dtype must fit the live
+        state, but the contact tables' capacities, which are restored
+        together with the engine's (a table may have grown or shrunk since
+        the save); raises otherwise."""
+        if not self._initialized:
+            raise RuntimeError("call Initialize() first")
+        with np.load(path) as data:
+            meta = json.loads(str(data["__meta"]))
+            cfg = dataclasses.replace(self.engine.cfg, **meta["caps"])
+            want = self._checkpoint_shapes(cfg)
+            have = set(data.files) - {"__meta"}
+            if have != set(want):
+                raise ValueError(
+                    f"checkpoint {path} does not fit this solver: missing "
+                    f"{sorted(set(want) - have)}, not in the state "
+                    f"{sorted(have - set(want))}")
+            arrays = {p: data[p] for p in want}
+        for p, (shape, dt) in want.items():
+            if arrays[p].shape != shape or arrays[p].dtype != dt:
+                raise ValueError(
+                    f"checkpoint {path}: {p} is {arrays[p].dtype}"
+                    f"{list(arrays[p].shape)}, the solver's {dt}"
+                    f"{list(shape)}")
+        self.state = map_tensors(self.state, lambda p, t: torch.as_tensor(
+            arrays[p], device=self.device))
+        self.engine.cfg = cfg
+        self.engine.bin_factor = float(meta["bin_factor"])
+        self.engine._config_changed()
+        self._ss_query = None
+
+    def _checkpoint_shapes(self, cfg):
+        """{path: (shape, numpy dtype)} a checkpoint must hold: the live
+        state's, with each contact table at the capacities of `cfg`: its
+        rows (or, for the field-major records, its columns) and the SS
+        table's unique-fetch lists, which follow cfg.uniq_cap."""
+        st = self.state
+        rows = ss_uniq_rows(cfg, st.owners.n)
+        uniq = {"uniq_a": (rows,),
+                "blk_start": (rows // cfg.uniq_cap + 1 if rows else 0,)}
+        want = {}
+        for p, t in state_tensors(st):
+            shape = tuple(t.shape)
+            table, _, field = p.partition(".")
+            field = field.split("[")[0]
+            if table in ("ss", "st", "sa"):
+                live = getattr(st, table).cap
+                cap = getattr(cfg, "cap_" + table)
+                if table == "ss" and field in uniq:
+                    shape = uniq[field]
+                elif table == "ss" and field == "uidx":
+                    shape = (cap if rows else 0,)
+                elif field in ("statics", "fstat_a"):  # (width, cap)
+                    shape = (shape[0], cap if shape[1] == live else shape[1])
+                elif shape and shape[0] == live:
+                    shape = (cap,) + shape[1:]
+            want[p] = (shape, torch.zeros(0, dtype=t.dtype).numpy().dtype)
+        return want
+
+    def GetAllOwnerWildcardValue(self, name: str):
+        """The owner wildcard `name` of every owner."""
+        return _np(self.state.owners.wildcards[name])

@@ -187,6 +187,20 @@ def ss_uniq_rows(cfg: SolverConfig, n_owners: int) -> int:
     return n_blocks_of(n_owners) * cfg.uniq_cap
 
 
+def uniq_fields(cfg: SolverConfig, cap: int, n_owners: int, device) -> dict:
+    """Empty unique-fetch fields of an SS table of capacity `cap` for
+    `n_owners` owners (``uniq_a``, ``uidx``, ``blk_start``): the lists'
+    rows follow the owner count, so a growth of uniq_cap and a change of
+    the owners (``DEMSolver.UpdateClumps``, ``PurgeFamily``) resize them.
+    The next refresh fills them."""
+    rows = ss_uniq_rows(cfg, n_owners)
+    n_starts = rows // cfg.uniq_cap + 1 if rows else 0
+    return dict(
+        uniq_a=torch.full((rows,), n_owners, dtype=I, device=device),
+        uidx=torch.zeros((cap if rows else 0,), dtype=F, device=device),
+        blk_start=torch.zeros((n_starts,), dtype=I, device=device))
+
+
 def empty_table(cfg: SolverConfig, cap: int, device):
     """A non-fused table: the wide statics layout that contact_pass
     reads."""

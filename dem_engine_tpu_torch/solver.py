@@ -17,8 +17,11 @@ Host protocol: ``Engine.refresh`` reads one overflow word per refresh.
 On a capacity overflow it grows the table (or the unique-fetch lists)
 and re-runs the refresh from the retained pre-refresh state; nothing on
 this path updates a state tensor in place, so the retry is lossless.
-``Engine.advance`` shrinks oversized tables after the refresh of its
-first, 64th and every 512th chunk (``maybe_shrink``).
+``Engine.advance`` runs blocks of `fuse` chunks and shrinks oversized
+tables after the refresh that opens its first, 64th and every 512th
+block (``maybe_shrink``); with the tuners on it picks K and the bin
+factor per block from the blocks' measured times (``Engine``). Growths
+and tuner moves go to ``Engine.log`` at STEP_METRIC.
 
 Timers: ``Engine.advance`` marks each chunk's refresh and its K steps
 with CUDA events on the card (the host clock on the CPU) and folds them
@@ -33,6 +36,7 @@ callable that they call with a name at their stage boundaries
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 
 import torch
@@ -41,7 +45,7 @@ from .defines import F, I
 from .models.prescriptions import PrescriptionTables, static_tables
 from .ops import binning, forces, history, integrator, narrowphase, quat
 from .ops import sweep, voxel
-from .initializer import ss_uniq_rows
+from .initializer import uniq_fields
 from .ops.fused_force import fused_wrench_ss
 from .state import (
     OVF_AVG_CONTACTS,
@@ -519,10 +523,58 @@ def run_steps(state: SimState, params: RuntimeParams, cfg: SolverConfig,
 
 
 class Engine:
-    """The refresh/step/grow/shrink protocol with a fixed CD cadence."""
+    """The refresh/step/grow/shrink protocol, with the adaptive CD cadence
+    and bin size of the JAX package's engine.
 
-    def __init__(self, cfg: SolverConfig):
+    ``advance`` runs its steps in blocks of `fuse` chunks of K steps (the
+    JAX engine's fused superchunks; the port launches each chunk on its
+    own), then the remainder that fills no block in chunks of K. Each
+    block is measured: the sum of its chunks' CUDA-event spans, from
+    each refresh's start to the end of its steps, over its steps. The
+    marks are complete once the next refresh has read its overflow word,
+    so a block is folded in one block late (``read_timers``) and the
+    tuner adds no host sync. A block whose refreshes grew a table is not
+    counted: its time holds the retry.
+
+    What the events see: on the built-in step the card is idle most of a
+    step (about 83 % on the 262,144-clump bed), so the span between two
+    events is mostly the host's launch time. The K tuner therefore walks
+    toward the K that makes the fewest launches per step, which is the
+    cost a user pays; the bin tuner toward the cheapest refresh.
+    """
+
+    #: the CD cadences the adaptive tuner visits
+    K_LADDER = (5, 8, 12, 18, 25, 36, 52, 75, 108, 156)
+
+    #: bin-size factors the adaptive bin tuner visits (1.0 is the
+    #: one-bin-per-sphere floor, 2 x the largest reach)
+    BIN_LADDER = (1.0, 1.3, 1.7, 2.2, 3.0)
+
+    def __init__(self, cfg: SolverConfig, fuse: int = 8):
         self.cfg = cfg
+        #: chunks per measured block
+        self.fuse = fuse
+        #: optional callable(level_name, msg) that the API sets: routes the
+        #: engine's growth and tuner events to the user's verbosity sink
+        self.log = None
+        # adaptive CD cadence: seconds/step per K, walked toward the
+        # cheapest rung of K_LADDER (below max_freq, SetCDMaxUpdateFreq)
+        self.auto_freq = False
+        self.active_freq: int | None = None
+        self.max_freq: int | None = None
+        self._k_perf: dict = {}
+        # adaptive bin size: a factor over the 2*max(reach) cell floor,
+        # put into params at every chunk; SetBinSize/SetInitBinSize seed
+        # it, and with auto_bin it walks BIN_LADDER like K
+        self.bin_factor = 1.0
+        self.auto_bin = False
+        self._bin_perf: dict = {}
+        #: one record per measured block, oldest first: its index in its
+        #: advance call, K, bin factor, seconds per step, growths, ss.count
+        #: and cap_ss at its first refresh, whether it was counted and
+        #: whether it re-tuned, the steps not yet enqueued when it was
+        #: measured, and the K (active_freq) and bin factor set after it
+        self.blocks: list = []
         #: refreshes run, retries after a capacity growth included (one
         #: pair-search launch each)
         self.refresh_attempts = 0
@@ -531,29 +583,134 @@ class Engine:
         #: refreshes and steps, growths, shrinks and refresh retries
         self.timers = self.zero_timers()
         self._pending = []  # marks of chunks not yet folded in
+        self._remaining = 0  # steps the running advance has not enqueued
 
     @staticmethod
     def zero_timers():
         return {"refresh_s": 0.0, "refresh_n": 0, "steps_s": 0.0,
                 "steps_n": 0, "grows": 0, "shrinks": 0, "retries": 0}
 
+    def _emit(self, level, msg):
+        if self.log is not None:
+            self.log(level, msg)
+        elif level in ("WARNING", "ERROR"):
+            # no sink (bare Engine use): a strategy change still surfaces
+            print(f"[dem_engine_tpu_torch][{level}] {msg}", file=sys.stderr,
+                  flush=True)
+
+    def _config_changed(self):
+        """What the JAX engine's rebuild after a change of capacities or
+        config does here: there is no compiled program to drop, only the
+        K tuner's measurements, since capacities shift the per-step
+        cost."""
+        self._k_perf.clear()
+
     def read_timers(self) -> dict:
-        """Fold every pending chunk's marks into ``timers``. On the card
+        """Fold every pending chunk's marks into ``timers``, and each
+        block whose chunks are all folded into the tuners. On the card
         this waits for the last chunk's end mark: no wait where the caller
         has synchronised already, as DoDynamics and a refresh have."""
         if self._pending and not isinstance(self._pending[-1][2], float):
             self._pending[-1][2].synchronize()
-        for r0, s0, s1, kk in self._pending:
-            self.timers["refresh_s"] += mark_seconds(r0, s0)
-            self.timers["steps_s"] += mark_seconds(s0, s1)
+        pending, self._pending = self._pending, []
+        for r0, s0, s1, kk, blk in pending:
+            rs, ss = mark_seconds(r0, s0), mark_seconds(s0, s1)
+            self.timers["refresh_s"] += rs
+            self.timers["steps_s"] += ss
             self.timers["refresh_n"] += 1
             self.timers["steps_n"] += kk
-        self._pending = []
+            if blk is not None:
+                blk["s"] += rs + ss
+                blk["folded"] += 1
+                if blk["folded"] == blk["chunks"]:
+                    self._measure(blk)
         return self.timers
 
     def clear_timers(self):
         self._pending = []
         self.timers = self.zero_timers()
+
+    def _measure(self, blk):
+        """A block's seconds per step into the tuners, then, with them on,
+        a move: K after even blocks, the bin factor after odd ones (the
+        two hill climbs never move in one measurement window). A move
+        takes effect at the next block that starts."""
+        k, bf = blk["k"], blk["bin_factor"]
+        per = blk["s"] / blk["steps"]
+        rec = dict(index=blk["index"], k=k, bin_factor=bf, per=per,
+                   grows=blk["grows"], ss_count=blk["ss_count"],
+                   cap_ss=blk["cap_ss"], counted=blk["grows"] == 0,
+                   retuned=False, remaining=self._remaining)
+        self.blocks.append(rec)
+        if rec["counted"]:
+            self._tune(rec)
+        # what the next block to start runs at
+        rec["k_next"], rec["bin_next"] = self.active_freq, self.bin_factor
+
+    def _tune(self, rec):
+        """The JAX engine's update of a counted block and its move."""
+        k, bf, per = rec["k"], rec["bin_factor"], rec["per"]
+        old = self._k_perf.get(k)
+        if old is not None and per < 0.8 * old:
+            # the bed is settling (the same K got >20% cheaper): the
+            # other rungs' readings are stale, re-explore from here
+            self._k_perf = {k: per}
+            self._bin_perf.clear()
+            rec["retuned"] = True
+        else:
+            self._k_perf[k] = per if old is None else 0.5 * old + 0.5 * per
+        old_b = self._bin_perf.get(bf)
+        self._bin_perf[bf] = per if old_b is None else (
+            0.5 * old_b + 0.5 * per)
+        if self.auto_freq and rec["index"] % 2 == 0:
+            new = self._propose_k(k, self._remaining)
+            if new != (self.active_freq or k):
+                self._emit("STEP_METRIC", f"adaptive CD cadence: K {k} -> "
+                           f"{new} ({per * 1e3:.3f} ms/step at K {k})")
+            self.active_freq = new
+        elif self.auto_bin and rec["index"] % 2 == 1:
+            new = self._propose_bin()
+            if new != self.bin_factor:
+                self._emit("STEP_METRIC", f"adaptive bin size: factor "
+                           f"{self.bin_factor:g} -> {new:g} "
+                           f"({per * 1e3:.3f} ms/step at {bf:g})")
+            self.bin_factor = new
+
+    def _propose_k(self, k: int, remaining: int) -> int:
+        """Walk the K ladder toward the cheapest measured seconds/step;
+        explore an unmeasured neighbor when adjacent to the current best."""
+        ladder = [x for x in self.K_LADDER
+                  if remaining >= 2 * self.fuse * x
+                  and (self.max_freq is None or x <= self.max_freq)]
+        if k not in ladder:
+            return k
+        i = ladder.index(k)
+        neighbors = [j for j in (i - 1, i + 1) if 0 <= j < len(ladder)]
+        for j in neighbors:  # explore unmeasured neighbors first
+            if ladder[j] not in self._k_perf:
+                return ladder[j]
+        best = min(
+            (v, kk) for kk, v in self._k_perf.items() if kk in ladder
+        )[1]
+        if best == k:
+            return k
+        return ladder[i + (1 if best > k else -1)]
+
+    def _propose_bin(self) -> float:
+        """Walk the bin-factor ladder toward the cheapest measured
+        seconds/step."""
+        ladder = sorted(set(self.BIN_LADDER) | {self.bin_factor})
+        f = self.bin_factor
+        i = ladder.index(f)
+        for j in (i - 1, i + 1):
+            if 0 <= j < len(ladder) and ladder[j] not in self._bin_perf:
+                return ladder[j]
+        best = min(
+            (v, kk) for kk, v in self._bin_perf.items() if kk in ladder
+        )[1]
+        if best == f:
+            return f
+        return ladder[i + (1 if best > f else -1)]
 
     def grow_for(self, state: SimState, ovf: int) -> SimState:
         """Grow the capacities named by the overflow bits. A unique-fetch
@@ -599,18 +756,16 @@ class Engine:
         if ovf & OVF_UNIQ:
             changes["uniq_cap"] = (cfg.uniq_cap * 2 if cfg.uniq_cap < 2048
                                    else 0)
+        if changes:
+            lvl = "WARNING" if "st_bruteforce" in changes else "STEP_METRIC"
+            self._emit(lvl, f"capacity/strategy growth after overflow "
+                            f"0x{ovf:x}: {changes}")
+            self._config_changed()
         self.cfg = dataclasses.replace(cfg, **changes)
         ss = state.ss.grown(self.cfg.cap_ss)
         if self.cfg.uniq_cap != cfg.uniq_cap:
-            n = state.owners.n
-            rows = ss_uniq_rows(self.cfg, n)
-            n_starts = rows // self.cfg.uniq_cap + 1 if rows else 0
-            ss = ss.replace(
-                uniq_a=torch.full((rows,), n, dtype=I, device=state.device),
-                uidx=torch.zeros((ss.cap if rows else 0,), dtype=F,
-                                 device=state.device),
-                blk_start=torch.zeros((n_starts,), dtype=I,
-                                      device=state.device))
+            ss = ss.replace(**uniq_fields(self.cfg, ss.cap, state.owners.n,
+                                          state.device))
         return state.replace(ss=ss, st=state.st.grown(self.cfg.cap_st),
                              sa=state.sa.grown(self.cfg.cap_sa))
 
@@ -636,6 +791,7 @@ class Engine:
         self.shrinks += 1
         self.timers["shrinks"] += 1
         self.cfg = dataclasses.replace(cfg, **changes)
+        self._config_changed()
         return state.replace(ss=state.ss.shrunk(self.cfg.cap_ss),
                              st=state.st.shrunk(self.cfg.cap_st),
                              sa=state.sa.shrunk(self.cfg.cap_sa))
@@ -658,28 +814,67 @@ class Engine:
 
     def advance(self, state: SimState, params: RuntimeParams,
                 n_steps: int, update_freq: int) -> SimState:
-        """Run n_steps, refreshing the contact tables every update_freq
-        steps (the last chunk may be shorter), and shrinking oversized
-        tables after the refresh of chunk 1, 64 and every 512th. Each
-        chunk's refresh and steps are timed (module docstring)."""
+        """Run n_steps, refreshing the contact tables every K steps: K is
+        update_freq, or the tuner's pick with auto_freq on. Whole blocks
+        of `fuse` chunks first, each at one K and one bin factor and
+        measured (class docstring), then the remainder in chunks of K, the
+        last one shorter. Oversized tables shrink after the refresh that
+        opens block 1, 64 and every 512th, and in the remainder after
+        that of its chunk 1, 64 and every 512th. Each chunk's refresh and
+        steps are timed (module docstring)."""
         h = float(params.h)
         done = 0
-        chunks = 0
+        blocks = 0
+        split = 0
         while done < n_steps:
-            kk = min(update_freq, n_steps - done)
-            params_k = params.replace(
-                max_drift=torch.tensor(kk, dtype=I, device=state.device))
-            marks = [time_mark(state.device)]
-            state = self.refresh(state, params_k)
-            # the refresh read its overflow word: earlier chunks' marks
-            # are complete
-            self.read_timers()
-            chunks += 1
-            if chunks in (1, 64) or chunks % 512 == 0:
-                state = self.maybe_shrink(state)
-            state = self.timed_steps(state, params_k, kk, h, marks)
-            self._pending.append((*marks, kk))
-            done += kk
+            k = (self.active_freq if self.auto_freq and self.active_freq
+                 else update_freq)
+            if n_steps - done >= self.fuse * k:
+                blocks += 1
+                blk = dict(index=blocks, k=k, bin_factor=self.bin_factor,
+                           chunks=self.fuse, steps=self.fuse * k, s=0.0,
+                           folded=0, grows0=self.timers["grows"], grows=0)
+                for c in range(self.fuse):
+                    self._remaining = n_steps - done
+                    state = self._chunk(
+                        state, params, k, blk["bin_factor"], h, blk,
+                        shrink=c == 0 and (blocks in (1, 64)
+                                           or blocks % 512 == 0))
+                    done += k
+            else:
+                split += 1
+                self._remaining = n_steps - done
+                kk = min(k, n_steps - done)
+                state = self._chunk(
+                    state, params, kk, self.bin_factor, h, None,
+                    shrink=split in (1, 64) or split % 512 == 0)
+                done += kk
+        self._remaining = 0
+        return state
+
+    def _chunk(self, state, params, kk, bin_factor, h, blk, shrink):
+        """One chunk: the refresh (`max_drift` kk, the bin factor), the
+        timers of the chunks before it folded in, a shrink if asked, then
+        the K-step window. `blk` is the measured block the chunk belongs
+        to, or None."""
+        dev = state.device
+        params_k = params.replace(
+            max_drift=torch.tensor(kk, dtype=I, device=dev),
+            bin_factor=torch.tensor(bin_factor, dtype=F, device=dev))
+        marks = [time_mark(dev)]
+        state = self.refresh(state, params_k)
+        # the refresh read its overflow word: earlier chunks' marks are
+        # complete
+        self.read_timers()
+        if blk is not None and "ss_count" not in blk:
+            blk["ss_count"], blk["cap_ss"] = int(state.ss.count), state.ss.cap
+        if shrink:
+            state = self.maybe_shrink(state)
+        if blk is not None:
+            # growths of the block's refreshes so far
+            blk["grows"] = self.timers["grows"] - blk["grows0"]
+        state = self.timed_steps(state, params_k, kk, h, marks)
+        self._pending.append((*marks, kk, blk))
         return state
 
     def timed_steps(self, state, params, n_steps, h, marks):

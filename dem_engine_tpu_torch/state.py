@@ -407,3 +407,36 @@ class SolverConfig:
     use_persistency: bool = False
     prescriptions: Tuple[Any, ...] = ()
     family_changes: Tuple[Any, ...] = ()
+
+
+def _join(path, name):
+    return f"{path}.{name}" if path else name
+
+
+def state_tensors(x, path: str = ""):
+    """Every tensor of a (nested) state dataclass with its dotted path
+    (a dict entry as ``[key]``), in field order: ``owners.vox``, ...,
+    ``ss.wildcards[delta_time]``, ..., ``time``."""
+    if isinstance(x, torch.Tensor):
+        yield path, x
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            yield from state_tensors(getattr(x, f.name), _join(path, f.name))
+    elif isinstance(x, dict):
+        for key, v in x.items():
+            yield from state_tensors(v, f"{path}[{key}]")
+
+
+def map_tensors(x, fn, path: str = ""):
+    """A copy of the (nested) state dataclass `x` with each tensor `t` at
+    path `p` (as ``state_tensors`` names it) replaced by fn(p, t)."""
+    if isinstance(x, torch.Tensor):
+        return fn(path, x)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: map_tensors(getattr(x, f.name), fn, _join(path, f.name))
+            for f in dataclasses.fields(x)})
+    if isinstance(x, dict):
+        return {key: map_tensors(v, fn, f"{path}[{key}]")
+                for key, v in x.items()}
+    return x

@@ -32,6 +32,18 @@ fixture; the tests read them.
   tracker reads; ProfileStageTimings' stages with the state left bit for
   bit; ShowTimingStats' counts; a ChangeFamilyWhen rule added after
   Initialize runs in neither package.
+* The rest of the API. The tuners' _propose_k/_propose_bin return
+  exactly what the JAX engine's return; Engine.advance's blocks under a
+  scripted cost take exactly the K and bin factor a replay through the
+  JAX methods picks. The bin switches: the bin factor and GetBinSize
+  within 1e-6 of JAX's, GetBinNum equal; the pair set equal at factors
+  1.0, 1.7, 3.0 and to JAX's find_pairs_ss. Checkpoints: every tensor
+  bit for bit after a load, and a replay bit for bit on the CPU, also
+  after a growth between save and load. UpdateClumps, PurgeFamily and
+  ChangeClumpSizes on a second _scene pair: ids, counts and pair sets
+  exactly, radii and offsets scaled exactly, owner state at the
+  tolerances above (vel/omg 2e-4 of the largest, positions 1e-3
+  voxel). The engine's log events, and every public JAX method present.
 """
 
 import csv
@@ -47,6 +59,8 @@ import dem_engine_tpu as jdem
 import dem_engine_tpu_torch as tdem
 from dem_engine_tpu.ops import forces as jforces
 from dem_engine_tpu_torch import convert
+from dem_engine_tpu_torch.state import state_tensors
+from test_torch_slice import jax_steps_without_donation  # noqa: F401
 
 torch.set_num_threads(2)
 jax.config.update("jax_platforms", "cpu")
@@ -62,8 +76,9 @@ def _rel(ref, got):
     return np.abs(ref - got).max() / max(np.abs(ref).max(), 1e-30)
 
 
-def _scene(dem, **device):
-    """A jittered lattice of 8 x 8 x 4 clumps, just above the floor."""
+def _scene(dem, dry_run=False, **device):
+    """A jittered lattice of 8 x 8 x 4 clumps, just above the floor;
+    `dry_run` refreshes the tables at Initialize."""
     s = dem.DEMSolver(**device)
     s.SetVerbosity("QUIET")
     nx, ny, nz = 8, 8, 4
@@ -90,7 +105,7 @@ def _scene(dem, **device):
     s.SetGravitationalAcceleration([0, 0, -9.81])
     s.SetCDUpdateFreq(5)
     tracker = s.Track(batch)
-    s.Initialize()
+    s.Initialize(dry_run=dry_run)
     return s, tracker
 
 
@@ -107,10 +122,10 @@ def run(tmp_path_factory):
         s.WriteSphereFile(str(files[name]))
     # the JAX SS fields on the final state (see the module docstring)
     st, cfg = js.state, js.engine.cfg
-    ss_now = jforces.contact_pass(
-        "ss", st.ss, st.owners, st.spheres, st.tris, st.anals, js.params,
+    ss_now = jax.jit(lambda st, p: jforces.contact_pass(
+        "ss", st.ss, st.owners, st.spheres, st.tris, st.anals, p,
         st.time, cfg.voxel_size, cfg.force_model,
-        krec=jforces.pack_kinematics(st.owners))["table"]
+        krec=jforces.pack_kinematics(st.owners))["table"])(st, js.params)
     return dict(js=js, ts=ts, jtr=jtr, ttr=ttr, init=init, files=files,
                 ss_now=ss_now)
 
@@ -541,23 +556,11 @@ def test_tracker_contact_torques_match_jax(run):
     assert _rel(ref_one[2], g_one[2]) < 2e-4
 
 
-def _tensors(x, path=""):
-    """Every tensor of a (nested) state dataclass, by path."""
-    if isinstance(x, torch.Tensor):
-        yield path, x
-    elif dataclasses.is_dataclass(x):
-        for f in dataclasses.fields(x):
-            yield from _tensors(getattr(x, f.name), f"{path}.{f.name}")
-    elif isinstance(x, dict):
-        for k, v in x.items():
-            yield from _tensors(v, f"{path}[{k}]")
-
-
 def test_stage_profile_leaves_state_bit_for_bit(run):
     ts = run["ts"]
-    before = {p: t.clone() for p, t in _tensors(ts.state)}
+    before = {p: t.clone() for p, t in state_tensors(ts.state)}
     stages = ts.ProfileStageTimings(reps=1)
-    after = dict(_tensors(ts.state))
+    after = dict(state_tensors(ts.state))
     assert after.keys() == before.keys() and len(before) > 40
     for p, t in before.items():
         assert torch.equal(t, after[p]), p
@@ -608,3 +611,492 @@ def test_rule_added_after_initialize_never_runs(run):
     assert s.engine.cfg.family_changes == ()
     assert len(s._family_changes) == 1
     np.testing.assert_array_equal(s.GetOwnerFamily(), [0, 0])
+
+
+# ---------------------------------------------------------------------------
+# the rest of the API: tuners, bin switches, checkpoints, insertion, purge,
+# resize, log events, the whole surface
+# ---------------------------------------------------------------------------
+
+def _jax_tuner(**attrs):
+    """A JAX Engine for its pure host methods (_propose_k, _propose_bin):
+    no config, no scene."""
+    from dem_engine_tpu.solver import Engine as JaxEngine
+
+    je = object.__new__(JaxEngine)
+    je.fuse, je.max_freq, je._k_perf = 8, None, {}
+    je.bin_factor, je._bin_perf = 1.0, {}
+    for k, v in attrs.items():
+        setattr(je, k, v)
+    return je
+
+
+# (k, remaining, fuse, max_freq, k_perf) for _propose_k, and (bin_factor,
+# bin_perf) for _propose_bin: the cases of tests/test_auto_freq.py and
+# tests/test_adaptive_bin.py::test_propose_bin_walks_toward_best
+_K_CASES = {
+    "explore": (8, 10**6, 8, None, {8: 1.0}),
+    "walk_up": (8, 10**6, 8, None, {5: 3.0, 8: 2.0, 12: 1.5, 25: 1.0}),
+    "stay": (18, 10**6, 8, None, {12: 2.0, 18: 1.0, 25: 1.5}),
+    "walk_down": (8, 10**6, 8, None, {5: 0.5, 8: 1.0, 12: 2.0}),
+    "max_freq": (12, 10**6, 8, 12, {5: 3.0, 8: 2.0, 12: 1.5, 25: 1.0}),
+    "remaining": (5, 80, 8, None, {5: 2.0, 8: 1.0}),
+    "settled": (25, 10**6, 8, None, {25: 1.0}),
+}
+_BIN_CASES = {
+    "bin_explore": (1.3, {1.3: 1.0}),
+    "bin_walk": (1.3, {1.0: 0.5, 1.3: 1.0, 1.7: 2.0}),
+    "bin_stay": (1.0, {1.0: 0.5, 1.3: 1.0, 1.7: 2.0}),
+}
+
+
+@pytest.mark.parametrize("case", [*_K_CASES, *_BIN_CASES, "random"])
+def test_tuner_proposals_match_jax(case):
+    """Engine._propose_k and _propose_bin return what the JAX engine's
+    return on the same readings; "random": 50 seeded reading sets, each
+    walked several moves (and a bin factor off the ladder, as
+    SetBinSize leaves one)."""
+    if case in _K_CASES:
+        k, rem, fuse, mx, perf = _K_CASES[case]
+        runs = [(k, rem, fuse, mx, perf, 1.0, {})]
+    elif case in _BIN_CASES:
+        bf, bperf = _BIN_CASES[case]
+        runs = [(25, 10**6, 8, None, {}, bf, bperf)]
+    else:
+        rng = np.random.default_rng(11)
+        ladder_k = tdem.Engine.K_LADDER
+        ladder_b = tdem.Engine.BIN_LADDER + (2.6,)
+        runs = []
+        for _ in range(50):
+            perf = {int(x): float(rng.uniform(0.5, 2.0)) for x in rng.choice(
+                ladder_k, size=rng.integers(1, 8), replace=False)}
+            bperf = {float(x): float(rng.uniform(0.5, 2.0))
+                     for x in rng.choice(ladder_b, size=rng.integers(1, 6),
+                                         replace=False)}
+            bf = float(rng.choice(list(bperf)))
+            runs.append((int(rng.choice(ladder_k)),
+                         int(rng.integers(0, 4000)),
+                         int(rng.choice([1, 2, 8])),
+                         [None, 12, 52][rng.integers(3)], perf, bf, bperf))
+    for k, rem, fuse, mx, perf, bf, bperf in runs:
+        je = _jax_tuner(fuse=fuse, max_freq=mx, _k_perf=dict(perf),
+                        bin_factor=bf, _bin_perf=dict(bperf))
+        eng = tdem.Engine(None, fuse=fuse)
+        eng.max_freq, eng._k_perf = mx, dict(perf)
+        eng.bin_factor, eng._bin_perf = bf, dict(bperf)
+        for _ in range(4):
+            if perf:
+                k_j, k_t = je._propose_k(k, rem), eng._propose_k(k, rem)
+                assert k_t == k_j, (case, k, rem, perf)
+                assert mx is None or k_t <= max(mx, k)
+                k = k_t
+            if bperf:
+                b_j, b_t = je._propose_bin(), eng._propose_bin()
+                assert b_t == b_j, (case, bf, bperf)
+                je.bin_factor = eng.bin_factor = b_t
+    assert tdem.Engine.K_LADDER == _jax_tuner().K_LADDER
+    assert tdem.Engine.BIN_LADDER == _jax_tuner().BIN_LADDER
+
+
+def test_tuner_in_advance_replays_jax(monkeypatch):
+    """Both tuners on, in Engine.advance on a 64-clump bed (fuse 2, K 5,
+    max_freq 18, 400 steps; the refreshes run, the steps only count),
+    with a scripted cost: every chunk span reads 1 ms, then 0.3 ms from
+    the 40th span on, so a settled K gets >20 % cheaper. The
+    blocks' K and bin factor must be what the JAX engine's update rule
+    and _propose_k/_propose_bin pick from the same readings, each block
+    running at the pick made one block before it, and K within max_freq
+    and the ladder."""
+    from dem_engine_tpu_torch import solver as tsolver
+
+    calls = []
+
+    def scripted(a, b):
+        calls.append(1)
+        return 1e-3 if len(calls) < 40 else 3e-4
+
+    monkeypatch.setattr(tsolver, "mark_seconds", scripted)
+    # the tuner reads only the scripted spans: the steps need not move
+    monkeypatch.setattr(tsolver, "run_steps", lambda st, p, c, n, h=None:
+                        st.replace(step=st.step + n))
+    cfg, state, params = tdem.build_case(64, update_freq=5, device="cpu")
+    eng = tdem.Engine(cfg, fuse=2)
+    eng.auto_freq, eng.auto_bin, eng.max_freq = True, True, 18
+    state = eng.advance(state, params, 400, update_freq=5)
+    eng.read_timers()
+    assert int(state.step) == 400
+    blocks = eng.blocks
+    assert len(blocks) >= 8 and all(b["counted"] for b in blocks)
+    assert any(b["retuned"] for b in blocks)
+    assert len({b["k"] for b in blocks}) > 1
+    assert len({b["bin_factor"] for b in blocks}) > 1
+    je = _jax_tuner(fuse=2, max_freq=18)
+    for i, b in enumerate(blocks):
+        k, per = b["k"], b["per"]
+        assert k in tdem.Engine.K_LADDER and k <= 18
+        assert b["bin_factor"] in tdem.Engine.BIN_LADDER
+        # JAX's update of a measured block (dem_engine_tpu/solver.py,
+        # Engine.advance), then its move
+        old = je._k_perf.get(k)
+        if old is not None and per < 0.8 * old:
+            je._k_perf = {k: per}
+            je._bin_perf.clear()
+            assert b["retuned"]
+        else:
+            je._k_perf[k] = per if old is None else 0.5 * old + 0.5 * per
+            assert not b["retuned"]
+        # keyed by the block's own factor; the move starts from the
+        # factor the tuner holds now (je.bin_factor, the last move's)
+        old_b = je._bin_perf.get(b["bin_factor"])
+        je._bin_perf[b["bin_factor"]] = per if old_b is None else (
+            0.5 * old_b + 0.5 * per)
+        if b["index"] % 2 == 0:
+            assert b["k_next"] == je._propose_k(k, b["remaining"])
+        else:
+            je.bin_factor = je._propose_bin()
+        assert b["bin_next"] == je.bin_factor
+        if i + 2 < len(blocks) and blocks[i + 2]["index"] == b["index"] + 2:
+            assert blocks[i + 2]["k"] == (b["k_next"] or 5)
+            assert blocks[i + 2]["bin_factor"] == b["bin_next"]
+
+
+def _host(x):
+    """A torch tensor or a JAX array as numpy."""
+    return (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(x))
+
+
+def _pair_set(idA, idB, count):
+    """The live pairs of a pair list, each as (lower id, higher id)."""
+    n = int(count)
+    a, b = _host(idA)[:n], _host(idB)[:n]
+    return set(zip(np.minimum(a, b).tolist(), np.maximum(a, b).tolist()))
+
+
+def _all_tensors(s):
+    return {p: t.clone() for p, t in state_tensors(s.state)}
+
+
+def _assert_same(a, b):
+    assert a.keys() == b.keys() and len(a) > 40
+    for p in a:
+        assert a[p].dtype == b[p].dtype and torch.equal(a[p], b[p]), p
+
+
+@pytest.mark.parametrize("grow", [False, True], ids=["plain", "grown"])
+def test_checkpoint_round_trip_bit_for_bit(tmp_path, grow, capsys):
+    """SaveCheckpoint, 10 steps, LoadCheckpoint: every tensor is the saved
+    one, and the same 10 steps replay bit for bit (the CPU's plain
+    versions sum in a fixed order). "grown": cap_ss is cut to the live
+    count before the save, so the run after it grows the SS table (and
+    logs the growth at STEP_METRIC); the load restores the capacity and
+    the replay grows it again. The file then loads into a fresh solver,
+    bit for bit, which runs a chunk."""
+    s, _ = _scene(tdem, device="cpu")
+    s.DoDynamics(5 * H)
+    if grow:
+        n = int(s.state.ss.count)
+        s.engine.cfg = dataclasses.replace(s.engine.cfg, cap_ss=n)
+        s.state = s.state.replace(ss=s.state.ss.shrunk(n))
+        s.SetVerbosity("STEP_METRIC")
+    path = str(tmp_path / "ck.npz")
+    s.SaveCheckpoint(path)
+    saved = _all_tensors(s)
+    cap0 = s.engine.cfg.cap_ss
+    s.DoDynamics(10 * H)
+    first = _all_tensors(s)
+    assert (s.engine.timers["grows"] > 0) == grow
+    if grow:
+        out = capsys.readouterr().out
+        assert "[STEP_METRIC] capacity/strategy growth after overflow 0x1" \
+            in out and s.engine.cfg.cap_ss > cap0
+    s.LoadCheckpoint(path)
+    assert s.engine.cfg.cap_ss == cap0
+    _assert_same(saved, _all_tensors(s))
+    s.DoDynamics(10 * H)
+    _assert_same(first, _all_tensors(s))
+    fresh, _ = _scene(tdem, device="cpu")
+    fresh.LoadCheckpoint(path)
+    _assert_same(saved, _all_tensors(fresh))
+    assert fresh.GetTime() == pytest.approx(5 * H)
+    fresh.DoDynamics(5 * H)
+    assert np.isfinite(fresh.GetOwnerVelocity()).all()
+    # a file that does not fit raises
+    other = tdem.DEMSolver(device="cpu")
+    other.SetVerbosity("QUIET")
+    mat = other.LoadMaterial({"E": 1e7, "nu": 0.3, "CoR": 0.5, "mu": 0.4})
+    other.AddClumps(other.LoadSphereType(1e-3, R, mat), np.zeros((2, 3)))
+    other.Initialize()
+    with pytest.raises(ValueError, match="does not fit|owners.vox is"):
+        other.LoadCheckpoint(path)
+
+
+
+def _snapshot(s, tracker):
+    st = s.state
+    return dict(
+        counts=(s.GetNumOwners(), s.GetNumSpheres(), s.GetNumClumps()),
+        pos=s.GetOwnerPosition(), vel=s.GetOwnerVelocity(),
+        omg=s.GetOwnerAngVel(), fam=s.GetOwnerFamily(),
+        s_owner=_host(st.spheres.owner), radius=_host(st.spheres.radius),
+        relpos=_host(st.spheres.relpos), a_owner=_host(st.anals.owner),
+        tracked=np.asarray(tracker.owner_ids),
+        pairs=_pair_set(st.ss.idA, st.ss.idB, st.ss.count))
+
+
+@pytest.fixture(scope="module")
+def changed():
+    """A second _scene pair through the same calls, from a dry run (its
+    refresh fills the tables): clumps 40 and 200 put in family 2,
+    AddClumps of a 4 x 4 layer of family 2 just above the bed, falling at
+    1 m/s, and UpdateClumps; one chunk (K = 5); PurgeFamily(2) (which
+    leaves the scene's owner and sphere counts, so the last chunk runs
+    the first pair's compiled shapes); ChangeClumpSizes of every tenth
+    clump by 0.95; one chunk. Snapshots of both packages after each call
+    and each chunk (10 steps in all: the two packages' positions part by
+    f32 rounding that grows with the steps).
+    Returns them, the resized owners, the voxel size and the two
+    solvers."""
+    js, jtr = _scene(jdem, dry_run=True)
+    ts, ttr = _scene(tdem, dry_run=True, device="cpu")
+    lbf = ts._lbf
+    ii, jj = np.meshgrid(np.arange(4), np.arange(4), indexing="ij")
+    pos = np.stack([ii.ravel() * 1.99 * R + 12 * R,
+                    jj.ravel() * 1.99 * R + 12 * R,
+                    np.full(16, 4 * 3.99 * R + 6 * R)], axis=-1) + lbf
+    ids = np.arange(0, 256, 10)
+
+    def insert(s):
+        s.SetOwnerFamily([40, 200], 2)  # two of the bed's clumps too
+        b = s.AddClumps(s._templates[0], pos)
+        b.SetFamilies(2)
+        b.SetVel([0.0, 0.0, -1.0])
+        s.UpdateClumps()
+
+    calls = (("init", lambda s: None),
+             ("inserted", insert),
+             ("insert_chunk", lambda s: s.DoDynamics(5 * H)),
+             ("purged", lambda s: s.PurgeFamily(2)),
+             ("resized", lambda s: s.ChangeClumpSizes(ids, 0.95)),
+             ("chunk", lambda s: s.DoDynamics(5 * H)))
+    snaps = {}
+    for stage, call in calls:
+        call(js)
+        call(ts)
+        snaps[stage] = {"jax": _snapshot(js, jtr), "port": _snapshot(ts, ttr)}
+    return snaps, ids, ts._voxel_size, (js, ts)
+
+
+def _same_stage(snap, voxel):
+    """The owners and spheres of both packages: ids, counts, pair sets
+    exactly; positions within 1e-3 of a voxel, vel and omg within 2e-4 of
+    the largest."""
+    ref, got = snap["jax"], snap["port"]
+    assert ref["counts"] == got["counts"]
+    for key in ("s_owner", "fam", "a_owner", "tracked"):
+        np.testing.assert_array_equal(ref[key], got[key], err_msg=key)
+    assert ref["pairs"] == got["pairs"]
+    assert np.abs(ref["pos"] - got["pos"]).max() < 1e-3 * voxel
+    assert _rel(ref["vel"], got["vel"]) < 2e-4
+    assert _rel(ref["omg"], got["omg"]) < 2e-4
+
+
+def test_update_clumps_matches_jax(changed):
+    """16 clumps (48 spheres) take owner ids after the two plane owners
+    (258-273) and sphere ids after the bed's, in both packages; the
+    contact tables keep their rows, and the chunk after finds the new
+    pairs."""
+    snaps, _, voxel, _ = changed
+    for stage in ("init", "inserted", "insert_chunk"):
+        _same_stage(snaps[stage], voxel)
+    before, after = snaps["init"]["port"], snaps["inserted"]["port"]
+    assert after["counts"] == (before["counts"][0] + 16,
+                               before["counts"][1] + 48,
+                               before["counts"][2] + 16)
+    np.testing.assert_array_equal(after["s_owner"][-48:],
+                                  np.repeat(np.arange(258, 274), 3))
+    assert (after["fam"][258:] == 2).all()
+    assert (after["vel"][258:, 2] == -1).all()
+    assert (after["fam"][[40, 200]] == 2).all()
+    assert after["pairs"] == before["pairs"]
+    chunk = snaps["insert_chunk"]["port"]
+    new = {p for p in chunk["pairs"] if p[1] >= 768}
+    assert new and all(p[0] >= 768 for p in new)  # the layer's own pairs
+
+
+def test_purge_family_matches_jax(changed):
+    """PurgeFamily(2) removes the family-2 owners below GetNumClumps()
+    (272 after the insertion): clumps 40 and 200 and the inserted 258-271,
+    so the last two inserted (272, 273; one for each plane owner) stay,
+    in both packages. Owner ids are renumbered in the spheres and the
+    planes; no sphere names a purged owner, the kept owners keep their
+    state, the tables start empty, and the chunk after the purge and the
+    resize agrees."""
+    snaps, _, voxel, _ = changed
+    for stage in ("purged", "chunk"):
+        _same_stage(snaps[stage], voxel)
+    ins, pur = snaps["insert_chunk"]["port"], snaps["purged"]["port"]
+    rule_keep = ~((ins["fam"] == 2) & (np.arange(len(ins["fam"])) < 272))
+    assert pur["counts"] == (int(rule_keep.sum()), 3 * 256, 256)
+    assert int(rule_keep.sum()) == 258 and rule_keep[272:].all()
+    assert not rule_keep[[40, 200]].any()
+    np.testing.assert_array_equal(pur["pos"], ins["pos"][rule_keep])
+    np.testing.assert_array_equal(pur["vel"], ins["vel"][rule_keep])
+    # the bed's 254 clumps, then the floor (AddBCPlane) and the bounding
+    # box's five planes, now owners 254 and 255, then the two kept
+    np.testing.assert_array_equal(np.unique(pur["s_owner"]),
+                                  np.r_[0:254, 256, 257])
+    np.testing.assert_array_equal(pur["a_owner"], [254] + [255] * 5)
+    assert not pur["pairs"] and snaps["chunk"]["port"]["pairs"]
+
+
+def test_change_clump_sizes_matches_jax(changed):
+    """Every tenth clump's spheres scaled by 0.95 (f32, exactly, in both
+    packages) after the purge; the chunk after them reads the new radii
+    in its refresh."""
+    snaps, ids, voxel, _ = changed
+    for stage in ("resized", "chunk"):
+        _same_stage(snaps[stage], voxel)
+    a, b = snaps["purged"]["port"], snaps["resized"]["port"]
+    scaled = np.isin(a["s_owner"], ids)
+    f = np.where(scaled, np.float32(0.95), np.float32(1.0)).astype(np.float32)
+    np.testing.assert_array_equal(b["radius"], a["radius"] * f)
+    np.testing.assert_array_equal(b["relpos"], a["relpos"] * f[:, None])
+    np.testing.assert_array_equal(snaps["resized"]["jax"]["radius"],
+                                  b["radius"])
+    assert scaled.sum() == 3 * len(ids)
+
+
+def test_bin_switches_match_jax(changed):
+    """On the pair the changed fixture left: SetInitBinSize, SetBinSize
+    (with the warning below the floor) and SetInitBinNumTarget after
+    Initialize, and SetInitBinSize before it: the engine's bin factor,
+    GetBinSize and GetBinNum equal JAX's. The pair set of the port's
+    search (binning.sweep_table on the CPU) is the same at factors 1.0,
+    1.7 and 3.0 and equal to JAX's binning.find_pairs_ss at 1.0."""
+    from dem_engine_tpu.ops import binning as jbinning
+    from dem_engine_tpu_torch.ops import sweep
+    from dem_engine_tpu_torch.solver import ss_search_inputs
+
+    js, ts = changed[3]
+    floor = ts._bin_floor()
+    assert floor == pytest.approx(js._bin_floor(), rel=1e-6)
+    for call, arg in (("SetInitBinSize", 2.6 * floor),
+                      ("SetInitBinNumTarget", 40),
+                      ("SetBinSize", 0.3 * floor),
+                      ("SetBinSize", 1.7 * floor)):
+        if arg < floor:
+            for s in (js, ts):
+                with pytest.warns(UserWarning, match="below the one-bin"):
+                    getattr(s, call)(arg)
+        else:
+            getattr(js, call)(arg)
+            getattr(ts, call)(arg)
+        assert ts.engine.bin_factor == pytest.approx(js.engine.bin_factor,
+                                                     rel=1e-6), call
+        assert ts.GetBinSize() == pytest.approx(js.GetBinSize(), rel=1e-6)
+        assert ts.GetBinNum() == js.GetBinNum(), call
+        assert ts.engine.auto_bin == js.engine.auto_bin
+    # a size given before Initialize is applied there
+    s = tdem.DEMSolver(device="cpu")
+    s.SetVerbosity("QUIET")
+    s.SetInitBinSize(2 * floor)
+    mat = s.LoadMaterial({"E": 1e7, "nu": 0.3, "CoR": 0.5, "mu": 0.4})
+    s.AddClumps(s.LoadSphereType(1e-3, R, mat), np.zeros((1, 3)))
+    s.Initialize()
+    assert s.engine.bin_factor == pytest.approx(2 * floor / s._bin_floor())
+    # the pair set at three factors
+    st = ts.state
+    sets = {}
+    for f in (1.0, 1.7, 3.0):
+        p = ts.params.replace(bin_factor=torch.tensor(f))
+        q = ss_search_inputs(st, p, ts._voxel_size)
+        a, b, n, _ = sweep.find_pairs_ss(
+            q["pos_cd"], q["reach"], st.spheres.owner, q["family"],
+            p.family_mask, q["bin_size"], q["nb_cd"], 8192)
+        sets[f] = _pair_set(a, b, n)
+        if f == 1.0:
+            ja, jb, jn, _, _ = jax.jit(jbinning.find_pairs_ss,
+                                       static_argnums=(7, 8))(
+                *(jax.numpy.asarray(_host(x)) for x in (
+                    q["pos_cd"], q["reach"], st.spheres.owner,
+                    q["family"], p.family_mask, q["bin_size"],
+                    q["nb_cd"])), 8192, 64)
+            ref = _pair_set(ja, jb, jn)
+    assert len(sets[1.0]) > 500
+    assert sets[1.0] == sets[1.7] == sets[3.0] == ref
+
+
+
+def _log_scene(verbosity, xyz=((0, 0, 0.0), (0, 0, 0.05))):
+    """tests/test_engine_log_events.py's scene on the port: two spheres
+    over a floor plane."""
+    s = tdem.DEMSolver(device="cpu")
+    s.SetVerbosity(verbosity)
+    s.InstructBoxDomainDimension(1.0, 1.0, 1.0)
+    mat = s.LoadMaterial({"E": 1e7, "nu": 0.3, "CoR": 0.5, "mu": 0.3,
+                          "Crr": 0.0})
+    s.AddClumps(s.LoadSphereType(0.1, 0.02, mat), np.asarray(xyz))
+    s.AddBCPlane([0, 0, -0.05], [0, 0, 1], mat)
+    s.SetInitTimeStep(5e-6)
+    s.SetGravitationalAcceleration([0, 0, -9.81])
+    s.Initialize()
+    return s
+
+
+@pytest.mark.parametrize("case", ["wired", "step_metric", "quiet", "growth"])
+def test_engine_log_events(case, capsys):
+    """The three cases of tests/test_engine_log_events.py on the port
+    (WARNING shows at INFO, STEP_METRIC only at STEP_METRIC, QUIET
+    silences both), and a real growth: three overlapping spheres against
+    cap_ss 1 log the SS growth at STEP_METRIC. A bare Engine with no sink
+    sends WARNING to stderr."""
+    if case == "wired":
+        s = _log_scene("INFO")
+        assert s.engine.log is not None
+        s.engine._emit("WARNING", "synthetic warning event")
+        out = capsys.readouterr().out
+        assert "synthetic warning event" in out and "[WARNING]" in out
+        s.engine._emit("STEP_METRIC", "synthetic metric event")
+        assert "synthetic metric event" not in capsys.readouterr().out
+        bare = tdem.Engine(s.engine.cfg)
+        bare._emit("WARNING", "to stderr")
+        bare._emit("STEP_METRIC", "nowhere")
+        got = capsys.readouterr()
+        assert "to stderr" in got.err and "nowhere" not in got.err + got.out
+    elif case == "step_metric":
+        s = _log_scene("STEP_METRIC")
+        s.engine._emit("STEP_METRIC", "growth 0x1: caps")
+        assert "growth 0x1" in capsys.readouterr().out
+    elif case == "quiet":
+        s = _log_scene("QUIET")
+        s.engine._emit("WARNING", "should not appear")
+        assert "should not appear" not in capsys.readouterr().out
+    else:
+        s = _log_scene("STEP_METRIC", ((0, 0, 0.0), (0, 0, 0.039),
+                                       (0, 0.039, 0.0)))
+        s.engine.cfg = dataclasses.replace(s.engine.cfg, cap_ss=1)
+        s.state = s.state.replace(ss=s.state.ss.shrunk(1))
+        s.DoDynamics(5e-6)
+        out = capsys.readouterr().out
+        assert s.engine.timers["grows"] == 1 and int(s.state.ss.count) == 2
+        assert ("[dem_engine_tpu_torch][STEP_METRIC] capacity/strategy "
+                "growth after overflow 0x1: {'cap_ss': 65}") in out
+
+
+def test_api_surface_matches_jax():
+    """Every public method of the JAX DEMSolver and DEMTracker exists on
+    the port's. Left out, with a reason each: none."""
+    left_out = {}
+    for jcls, tcls in ((jdem.DEMSolver, tdem.DEMSolver),
+                       (jdem.api.DEMTracker, tdem.DEMTracker)):
+        names = [n for n in dir(jcls) if not n.startswith("_")]
+        missing = [n for n in names
+                   if not hasattr(tcls, n) and n not in left_out]
+        assert not missing, (tcls.__name__, missing)
+        assert len(names) > 30
+    eng = tdem.Engine(None)
+    for name in ("K_LADDER", "BIN_LADDER", "_propose_k", "_propose_bin",
+                 "log", "_emit", "auto_freq", "active_freq", "max_freq",
+                 "_k_perf", "bin_factor", "auto_bin", "_bin_perf", "fuse"):
+        assert hasattr(eng, name), name

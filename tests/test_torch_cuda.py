@@ -780,3 +780,25 @@ def test_cohesive_solver_matches_cpu():
     assert set(rg) == set(rc) and rc
     order = [rg[key] for key in rc]
     assert np.abs(hg[order] - hc).max() <= 2e-4 * np.abs(hc).max()
+
+
+def test_rest_phase_small():
+    """chip_smoke.py's phase 14 (rest) at 4,096 clumps: the tuners over
+    3,200 steps (each moves and stays on its ladder, no contact lost,
+    kernel C identical to the plain sweep at the largest bin factor
+    visited and at 1.0), the checkpoint (bit for bit after a load, the
+    resumed run within 1e-3 R, a fresh solver's load bit for bit),
+    UpdateClumps (exact counts, the SS table grown and logged, C
+    identical on the grown table), PurgeFamily (the JAX rule's owners,
+    positions bit for bit) and ChangeClumpSizes (exact scaling). The phase
+    fails (SystemExit) on any miss."""
+    import os
+    import sys
+
+    _need_card()
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+
+    s, tabs = chip_smoke.phase_rest(torch, 4096, 25)
+    assert len(tabs) == 2 and s.GetNumClumps() == 4096 + 1

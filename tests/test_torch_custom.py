@@ -63,6 +63,7 @@ from dem_engine_tpu_torch.models import HertzianForceModel
 from dem_engine_tpu_torch.ops import forces, history
 from dem_engine_tpu_torch.ops.fused_force import fused_wrench_ss, hertz_rows
 from dem_engine_tpu_torch.state import ContactTable
+from test_torch_slice import jax_steps_without_donation  # noqa: F401
 
 torch.set_num_threads(2)
 jax.config.update("jax_platforms", "cpu")

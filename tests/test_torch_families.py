@@ -48,6 +48,7 @@ from dem_engine_tpu_torch.defines import F, TimeIntegrator
 from dem_engine_tpu_torch.models import prescriptions as tpresc
 from dem_engine_tpu_torch.ops import integrator as tinteg
 from dem_engine_tpu_torch.state import SolverConfig as TSolverConfig
+from test_torch_slice import jax_steps_without_donation  # noqa: F401
 
 torch.set_num_threads(2)
 jax.config.update("jax_platforms", "cpu")
@@ -494,12 +495,14 @@ def _free_fall(integ):
     new = tsolver.dynamics_step(state, params, cfg)
     jo = jax.tree_util.tree_map(jnp.asarray, convert_owners(state.owners))
     zero = jnp.zeros((1, 3), F_J)
-    ref = jinteg.integrate_owners(
-        jo, zero, zero, jinit.make_params(
+    # jitted: one compile per integrator, not one per operation
+    jt = jpresc.PrescriptionTables((), jnp.float32(0.0))
+    ref = jax.jit(lambda jo, zero, jp: jinteg.integrate_owners(
+        jo, zero, zero, jp, jt, vs, jdem.TimeIntegrator(integ),
+        jnp.float32(0.0)))(
+        jo, zero, jinit.make_params(
             h=1e-3, gravity=[0.0, 0.0, -9.81], domain=[1.0, 1.0, 1.0],
-            materials={}, pair_materials={}),
-        jpresc.PrescriptionTables((), jnp.float32(0.0)), vs,
-        jdem.TimeIntegrator(integ), jnp.float32(0.0))
+            materials={}, pair_materials={}))
 
     def z(o):
         return float(np.float64(_np(o.vox)[0, 2]) * vs + _np(o.loc)[0, 2])

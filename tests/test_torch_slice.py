@@ -41,6 +41,22 @@ from dem_engine_tpu.solver import refresh_contacts as jax_refresh
 from dem_engine_tpu_torch import Engine, build_case, convert
 from dem_engine_tpu_torch.solver import refresh_contacts
 
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_steps_without_donation():
+    """The JAX engine compiles each K-step program twice: first without
+    input donation (its OOM-recovery protocol), then with it. Donation
+    changes no value, so the reference runs of these modules take the
+    first program only: one compile, not two, per configuration. The
+    patch lives for the module that uses this fixture (the other port
+    files import it)."""
+    with pytest.MonkeyPatch.context() as mp:
+        steps_fn = JaxEngine._steps_fn
+        mp.setattr(JaxEngine, "_steps_fn",
+                   lambda self, k, state, params, donate=True:
+                   steps_fn(self, k, state, params, donate=False))
+        yield
+
 torch.set_num_threads(2)
 jax.config.update("jax_platforms", "cpu")
 
