@@ -185,6 +185,24 @@ Phases, each printing its own numbers; any failure exits nonzero:
                table counts against capacities. Profiled at the end:
                launches a step and, with breakdown, a drive step and a
                refresh by operation and the refresh's split
+  17 mesh      the multi-device layer at world size 1 over NCCL (the box
+               has one card): the 262,144-clump bed, Crr = 0, through
+               Engine(cfg, mesh) with the spatial refresh on and its
+               buckets at a quarter of their auto size, so the first
+               refresh takes the OVF_SPATIAL_BUCKET growth (each growth
+               printed, the JAX formula's ladder checked); on the
+               settled state the spatial pair set identical to kernel
+               C's global sweep and to the plain sweep's, and on the
+               rows the rank received (padding rows left out as
+               non-members) kernel C held row for row to the plain
+               sweep, whose kept pairs are that set too; 4 chunks
+               against Engine(cfg) with no
+               mesh at the parity tolerances; 250 timed steps and five
+               refreshes with and without the mesh (ms/step, refresh ms,
+               peak memory, A twice and B once a step, C once a refresh
+               attempt), physics. Profiled at the end: launches and
+               device time a step with and without the mesh, NCCL's
+               share
 With every phase run, the line before the last holds the kernels' JSON
 record and the one before it the card's name and power limit; the last
 line is the JSON verdict.
@@ -3371,6 +3389,217 @@ def phase_flagship(torch, settle_steps, drive_steps, tmp, n=FLAGSHIP_N):
     return s
 
 
+def phase_mesh(torch, n_clumps, k, warm, steps, card):
+    """Phase 17: the multi-device layer at world size 1 over NCCL (the box
+    has one card). The mono bed with the spatial refresh on, through
+    Engine(cfg, mesh): buckets at a quarter of their auto size, so the
+    first refresh takes the OVF_SPATIAL_BUCKET growth; on the settled
+    state the spatial pair set identical to kernel C's global sweep and
+    to the plain sweep's, and kernel C on the received rows identical
+    to the plain sweep there (``mesh_pairs``); 4 chunks from that state
+    against Engine(cfg) with no mesh at the
+    parity phase's tolerances (Crr = 0); then the timed chunks, refreshes
+    and launch counts of both. Returns what the profile at the end
+    needs."""
+    from dem_engine_tpu_torch import Engine, build_case
+    from dem_engine_tpu_torch.ops.voxel import decode_host
+    from dem_engine_tpu_torch.parallel import (gather_state, make_mesh,
+                                               shard_state)
+    from dem_engine_tpu_torch.solver import _GROWTH, spatial_capx_auto
+
+    torch.cuda.empty_cache()
+    mesh = make_mesh(1, device=DEVICE)
+    print(f"[mesh] world size {mesh.size}, backend {mesh.backend}, device "
+          f"{mesh.device}; {card}", flush=True)
+    if mesh.backend != ("nccl" if DEVICE == "cuda" else "gloo"):
+        fail("the mesh on the card must run NCCL")
+    cfg, state, params = build_case(n_clumps, update_freq=k, device=DEVICE)
+    params = params.replace(pair_props={
+        **params.pair_props, "Crr": torch.zeros((1, 1), device=DEVICE)})
+    n_sph = state.spheres.n
+    auto = spatial_capx_auto(n_sph, mesh.size)
+    cfg = dataclasses.replace(cfg, spatial_refresh=True,
+                              spatial_capx=auto // 4)
+    eng0 = Engine(cfg)
+    state = eng0.advance(state, params, warm, k)
+    params_k = params.replace(max_drift=torch.tensor(k, dtype=torch.int32,
+                                                     device=DEVICE))
+
+    # the growth path, on the settled state
+    events = []
+    eng = Engine(cfg, mesh=mesh)
+    eng.log = lambda level, msg: events.append(f"{level}: {msg}")
+    reset_counts()
+    local = eng.refresh(shard_state(state, mesh), params_k)
+    c_growth = read_counts()["C"]
+    want, capx = cfg.spatial_capx, []
+    while want < eng.cfg.spatial_capx:
+        want = int(want * _GROWTH) + 128
+        capx.append(want)
+    for e in events:
+        print(f"[mesh] growth event: {e}", flush=True)
+    print(f"[mesh] spatial_capx {cfg.spatial_capx} (a quarter of the auto "
+          f"{auto}) -> {eng.cfg.spatial_capx} in {eng.timers['grows']} "
+          f"growths (the JAX formula's ladder: {capx}), {c_growth} C "
+          f"launches", flush=True)
+    if not (events and eng.timers["grows"] >= 1
+            and eng.cfg.spatial_capx == want and c_growth
+            == eng.timers["grows"] + 1):
+        fail("the spatial bucket growth did not run as the JAX engine's")
+
+    mesh_pairs(torch, mesh, eng, eng0, state, local, params_k, card)
+
+    # 4 chunks from the settled state, with and without the mesh
+    def owners(st):
+        o = st.owners
+        return (o.vel.cpu().numpy(), o.omg.cpu().numpy(),
+                decode_host(o.vox.cpu().numpy(), o.loc.cpu().numpy(),
+                            cfg.voxel_size))
+
+    ref = owners(Engine(eng0.cfg).advance(state, params, 4 * k, k))
+    out = owners(gather_state(Engine(eng.cfg, mesh=mesh).advance(
+        shard_state(state, mesh), params, 4 * k, k), mesh))
+    e_v, e_o = rel_err(ref[0], out[0]), rel_err(ref[1], out[1])
+    e_p = float(np.abs(ref[2] - out[2]).max() / cfg.voxel_size)
+    print(f"[mesh] 4 chunks of K={k} from the settled state, mesh against "
+          f"no mesh (Crr=0): vel err {e_v:.2e} omg err {e_o:.2e} position "
+          f"err {e_p:.2e} voxel (tol 2e-4, 2e-4, 1e-3)", flush=True)
+    if not (e_v <= 2e-4 and e_o <= 2e-4 and e_p <= 1e-3):
+        fail("the mesh Engine disagrees with the Engine without a mesh")
+
+    # timed: chunks and refreshes, without the mesh and with it
+    runs = {}
+    for tag, e, st, m in (("no mesh", eng0, state, None),
+                          ("mesh", eng, local, mesh)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a0 = e.refresh_attempts
+        reset_counts()
+        t0 = time.perf_counter()
+        st = e.advance(st, params, steps, k)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts, refreshes = read_counts(), e.refresh_attempts - a0
+        mem = torch.cuda.max_memory_allocated()
+        ref_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            e.refresh(st, params_k)
+            torch.cuda.synchronize()
+            ref_ms.append((time.perf_counter() - t1) * 1e3)
+        runs[tag] = (e, st, counts)
+        print(f"[mesh] {tag}: {n_clumps} clumps, K={k}, {steps} steps: "
+              f"{dt * 1e3 / steps:.3f} ms/step, a refresh "
+              f"{float(np.median(ref_ms)):.3f} ms (median of 5); peak "
+              f"memory {mem / 2**30:.2f} GiB; launches {counts} "
+              f"({refreshes} refresh attempts); {card}", flush=True)
+        expect = {"A": 2 * steps, "B": steps, "B-extras": 0, "B-ub": 0,
+                  "C": refreshes, "D": 0, "lists": 0}
+        if counts != expect or refreshes < steps // k:
+            fail(f"{tag}: launch counts {counts}, expected {expect}")
+    physics(torch, gather_state(runs["mesh"][1], mesh), cfg.voxel_size,
+            "mesh")
+    return mesh, runs, params_k
+
+
+def mesh_pairs(torch, mesh, eng, eng0, state, local, params_k, card):
+    """Phase 17's pair sets on the settled state: the spatial search's
+    (the mesh Engine's refresh, `local`), kernel C's global sweep (the
+    Engine without a mesh) and the plain sweep over every sphere must be
+    one set. The received rows are then built again at the grown bucket
+    size, as the spatial search builds them (padding rows included, left
+    out as non-members): kernel C on them must equal the plain sweep row
+    for row, and the pairs the rank keeps of the plain sweep's must be
+    that set too. Check launches are not counted (the caller resets the
+    counts before each path it reads)."""
+    from dem_engine_tpu_torch.ops import binning
+    from dem_engine_tpu_torch.parallel import gather_state, spatial
+    from dem_engine_tpu_torch.solver import ss_search_inputs
+
+    n_sph, cfg, mask = state.spheres.n, eng.cfg, params_k.family_mask
+    whole = eng0.refresh(state, params_k)
+    got = gather_state(local, mesh)
+    sets = {"spatial": ss_keys(torch, got.ss, n_sph),
+            "C global": ss_keys(torch, whole.ss, n_sph)}
+    q = ss_search_inputs(state, params_k, cfg.voxel_size)
+    tab = binning.build_sphere_table(q["pos_cd"], q["reach"], q["owner"],
+                                     q["family"], q["bin_size"], q["nb_cd"],
+                                     n_sph)
+    t0 = time.perf_counter()
+    pa, pb, pn = binning.sweep_table(tab, n_sph, mask, q["nb_cd"],
+                                     eng0.cfg.cap_ss, int(tab.max_occ))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    live = pa >= 0
+    sets["plain global"] = torch.sort(pa[live].long() * n_sph
+                                      + pb[live].long()).values
+
+    # the rows the spatial search received, at the grown bucket size
+    q = ss_search_inputs(state, params_k, cfg.voxel_size, relabel=False)
+    rec, resident, bovf = spatial.exchange(
+        q["pos"], q["reach"], q["owner"], q["family"], q["bin_size"],
+        params_k.domain, mesh, cfg.spatial_capx)
+    c_cap = spatial.received_cap(cfg.cap_ss, n_sph, rec.shape[0])
+    ka, kb, kn, rtab = spatial.search_received(rec, mask, q["bin_size"],
+                                               q["nb_cd"], c_cap)
+    ra, rb, rn = binning.sweep_table(rtab, rec.shape[0], mask, q["nb_cd"],
+                                     c_cap, int(rtab.max_occ))
+    same_c = (int(kn) == int(rn) and torch.equal(ka, ra)
+              and torch.equal(kb, rb))
+    ia, ib, kept = spatial.keep_resident(rec, resident, ra, rb,
+                                         q["bin_size"], q["nb_cd"],
+                                         cfg.cap_ss)
+    live = ia >= 0
+    sets["plain received"] = torch.sort(ia[live].long() * n_sph
+                                        + ib[live].long()).values
+    n_valid = int(spatial.unpack(rec)[5].sum())
+    print(f"[mesh] received rows {rec.shape[0]} ({n_valid} spheres, "
+          f"{rec.shape[0] - n_valid} padding rows as non-members; bucket "
+          f"overflow {bool(bovf)}); kernel C on them {int(kn)} pairs, the "
+          f"plain sweep {int(rn)} (table {c_cap} rows, max occupancy "
+          f"{int(rtab.max_occ)}): identical row for row {same_c}; kept "
+          f"{int(kept)}", flush=True)
+    ref = sets["C global"]
+    same = {k: bool(v.shape == ref.shape and torch.equal(v, ref))
+            for k, v in sets.items()}
+    print(f"[mesh] settled state pair sets: "
+          + ", ".join(f"{k} {v.numel()}" for k, v in sets.items())
+          + f" (counts: spatial {int(got.ss.count)}, C global "
+          f"{int(whole.ss.count)}, plain global {int(pn)}); identical "
+          f"{all(same.values())}; the plain global sweep took "
+          f"{plain_s * 1e3:.1f} ms; {card}", flush=True)
+    if not same_c or bool(bovf) or n_valid != n_sph:
+        fail("kernel C on the received rows differs from the plain sweep")
+    if not (all(same.values()) and int(got.ss.count) == int(whole.ss.count)
+            == int(pn) == int(kept) == ref.numel() > 0):
+        fail(f"the spatial, C global and plain pair sets differ: {same}")
+
+
+def mesh_device(torch, mesh, runs, params_k, card, n=5):
+    """The profile of phase 17: launches and device time a step with the
+    mesh and without it (the collectives add launches)."""
+    from dem_engine_tpu_torch.solver import run_steps
+
+    for tag, (e, st, _) in runs.items():
+        m = mesh if tag == "mesh" else None
+        rows = device_rows(torch, lambda: run_steps(st, params_k, e.cfg, n,
+                                                    mesh=m), per=n)
+        if not rows:
+            print(f"[mesh device] {tag}: the profiler recorded no device "
+                  "time: not measured", flush=True)
+            continue
+        coll = [r for r in rows if "nccl" in r[2].lower()]
+        print(f"[mesh device] {tag}: {sum(r[1] for r in rows):g} launches "
+              f"and {sum(r[0] for r in rows):.3f} ms of device time a step, "
+              f"{sum(r[1] for r in coll):g} of them NCCL "
+              f"({sum(r[0] for r in coll):.3f} ms); {card}", flush=True)
+        for ms, cnt, name in coll[:4]:
+            print(f"[mesh device]   {ms:.3f} ms/step  x{cnt:g}  {name[:70]}",
+                  flush=True)
+    mesh.close()
+
+
 KERNELS = {
     "A": ("segment_sum", "dem_engine_tpu_torch/csrc/segred.cu",
           "dem_engine_tpu/ops/pallas_segred.py:165"),
@@ -3391,7 +3620,7 @@ KERNELS = {
 }
 PHASES = ("kernels", "parity", "main", "poly", "breakdown", "api",
           "families", "uniq", "output", "custom", "bonded", "rest", "demos",
-          "flagship")
+          "flagship", "mesh")
 
 
 def main():
@@ -3470,6 +3699,13 @@ def main():
             flagship = phase_flagship(torch, args.flagship_settle,
                                       args.flagship_drive, d)
         print(f"[flagship] phase 16 (timed part): "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    meshed = None
+    if "mesh" in phases:
+        t0 = time.perf_counter()
+        meshed = phase_mesh(torch, args.clumps, args.k, args.warm,
+                            args.steps, card)
+        print(f"[mesh] phase 17 (timed part): "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     # torch.profiler only from here on, so that no timed run follows a
     # profile in its process; the breakdowns settle their beds anew, so
@@ -3552,6 +3788,9 @@ def main():
                             tag="flagship breakdown")
             poly_refresh_split(torch, s.engine, s.state, s.params, 25)
         del s, flagship
+    if meshed:
+        mesh_device(torch, *meshed, card)
+        del meshed
     print(card)
     if kern and main_counts and api_counts:
         # each kernel's launches on the path that runs it: A, B and C on

@@ -290,6 +290,8 @@ def config_from_reference(cfg, prescriptions=None, family_changes=None,
         uniq_cap=(int(_get(cfg, "uniq_cap"))
                   if _get(cfg, "use_fused_force") else 0),
         use_persistency=bool(_get(cfg, "use_persistency")),
+        spatial_refresh=bool(_get(cfg, "spatial_refresh")),
+        spatial_capx=int(_get(cfg, "spatial_capx")),
         prescriptions=tuple(prescriptions or ()),
         family_changes=tuple(family_changes or ()),
     )

@@ -84,7 +84,7 @@ def fused_ss(model) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _owner_sort(own_a, own_b, live):
+def owner_sort(own_a, own_b, live):
     """Stable argsort by (own_a, own_b), dead rows last. Rows that tie on
     (own_a, own_b) -- up to 9 sphere pairs of two 3-sphere clumps -- keep
     their input order."""
@@ -156,7 +156,7 @@ def finalize_table(kind, table: ContactTable, owners: Owners, spheres,
     jB = torch.where(live0, table.idB, 0).long()
     own_a0 = torch.where(live0, spheres.owner[jA], -1)
     own_b0 = torch.where(live0, src_b.owner[jB], -1)
-    perm = _owner_sort(own_a0, own_b0, live0)
+    perm = owner_sort(own_a0, own_b0, live0)
 
     idA = table.idA[perm]
     idB = table.idB[perm]
@@ -172,9 +172,7 @@ def finalize_table(kind, table: ContactTable, owners: Owners, spheres,
     oa = torch.where(live, own_a, 0).long()
     ob = torch.where(live, own_b, 0).long()
 
-    # B-side permutation: own_b order, ties by own_a
-    perm_b = _owner_sort(own_b, own_a, live).to(I)
-    own_b_sorted = torch.where(live, own_b, n_owners)[perm_b.long()]
+    perm_b, own_b_sorted = b_side(own_a, own_b, live, n_owners)
 
     out = table.replace(idA=idA, idB=idB, persist=persist, own_a=own_a,
                         own_b=own_b, wildcards=wildcards, perm_b=perm_b,
@@ -184,7 +182,7 @@ def finalize_table(kind, table: ContactTable, owners: Owners, spheres,
                                owners, spheres, params)
         out = out.replace(fstat_a=fstat)
         if uniq_cap:
-            out = _with_uniq_layout(out, n_owners, uniq_cap)
+            out = with_uniq_layout(out, n_owners, uniq_cap)
         return out
 
     statics = _build_statics(kind, live, iA, iB, oa, ob, own_a, own_b,
@@ -197,6 +195,14 @@ def finalize_table(kind, table: ContactTable, owners: Owners, spheres,
     for name in model.pairwise_props:
         premix[name] = params.pair_props[name][mat_a, mat_b]
     return out.replace(statics=statics, premix=premix)
+
+
+def b_side(own_a, own_b, live, n_owners):
+    """The B-side permutation of an (own_a, own_b)-sorted table (own_b
+    order, ties by own_a, dead rows last) and own_b in that order, dead
+    rows mapped to n_owners."""
+    perm_b = owner_sort(own_b, own_a, live).to(I)
+    return perm_b, torch.where(live, own_b, n_owners)[perm_b.long()]
 
 
 def block_starts(own_a, n_owners):
@@ -263,7 +269,7 @@ def uniq_layout_cuda(table, n_owners, uniq_cap):
 uniq_layout_cuda.launches = 0
 
 
-def _with_uniq_layout(table, n_owners, uniq_cap):
+def with_uniq_layout(table, n_owners, uniq_cap):
     """The table with its unique-fetch lists: the lists launch on a CUDA
     table, ``uniq_layout_plain`` on a CPU one."""
     build = (uniq_layout_cuda if table.own_a.is_cuda

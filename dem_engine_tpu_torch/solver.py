@@ -23,6 +23,16 @@ block (``maybe_shrink``); with the tuners on it picks K and the bin
 factor per block from the blocks' measured times (``Engine``). Growths
 and tuner moves go to ``Engine.log`` at STEP_METRIC.
 
+Multi-device: ``Engine(cfg, mesh)`` runs on one rank's shard of the
+state (``parallel.mesh``). A refresh gathers the geometry and the old
+tables' keys, searches (by x-slab with cfg.spatial_refresh,
+``parallel.spatial``), carries the history over the whole pair list and
+finalizes the rank's block of rows, then reduces the overflow word over
+the ranks; a step runs the kernels on the rank's rows and
+reduce-scatters the wrench. Every host decision reads values that are
+equal on every rank (the reduced overflow word, counts summed over the
+ranks, rank 0's tuner moves), so the ranks call the same collectives.
+
 Timers: ``Engine.advance`` marks each chunk's refresh and its K steps
 with CUDA events on the card (the host clock on the CPU) and folds them
 into ``Engine.timers`` once they are complete: after the next chunk's
@@ -47,10 +57,13 @@ from .ops import binning, forces, history, integrator, narrowphase, quat
 from .ops import sweep, voxel
 from .initializer import uniq_fields
 from .ops.fused_force import fused_wrench_ss
+from .parallel import mesh as pmesh
+from .parallel.spatial import find_pairs_ss_spatial
 from .state import (
     OVF_AVG_CONTACTS,
     OVF_LCAP,
     OVF_SA_CAP,
+    OVF_SPATIAL_BUCKET,
     OVF_SS_CAP,
     OVF_ST_CAP,
     OVF_ST_OCC,
@@ -58,6 +71,7 @@ from .state import (
     OVF_UNIQ,
     OVF_VEL,
     OVF_XOCC,
+    ContactTable,
     RuntimeParams,
     SimState,
     SolverConfig,
@@ -65,7 +79,9 @@ from .state import (
 
 _GROWTH = 1.6
 _CAP_OVF = (OVF_SS_CAP | OVF_ST_CAP | OVF_SA_CAP | OVF_TRI_BINS
-            | OVF_ST_OCC | OVF_UNIQ | OVF_XOCC | OVF_LCAP)
+            | OVF_ST_OCC | OVF_UNIQ | OVF_XOCC | OVF_LCAP
+            | OVF_SPATIAL_BUCKET)
+_CAPS = {"ss": "cap_ss", "st": "cap_st", "sa": "cap_sa"}
 
 
 def _norm(v):
@@ -151,9 +167,10 @@ def tri_world_nodes(owners, tris, voxel_size):
 
 
 def ss_search_inputs(state: SimState, params: RuntimeParams,
-                     voxel_size: float) -> dict:
+                     voxel_size: float, relabel: bool = True) -> dict:
     """Sphere positions, reaches and grid of the SS pair search, plus
-    the margins and the velocity measure the rest of the refresh uses."""
+    the margins and the velocity measure the rest of the refresh uses.
+    `relabel` False keeps the world axes (the spatial search slabs x)."""
     owners, spheres = state.owners, state.spheres
     pos, margin, absv, raw_absv = sphere_pos_margins(owners, spheres,
                                                      params, voxel_size)
@@ -163,7 +180,8 @@ def ss_search_inputs(state: SimState, params: RuntimeParams,
     # CD axis relabel: the axis with the most bins becomes the slowest
     # (flat-bin major) axis. Distances do not depend on the axis order;
     # only the bin order of the sorted table does.
-    perm = torch.argsort(nb, stable=True)
+    perm = (torch.argsort(nb, stable=True) if relabel
+            else torch.arange(3, device=nb.device))
     return dict(pos=pos, margin=margin, raw_absv=raw_absv,
                 pos_cd=pos[:, perm], reach=reach, owner=spheres.owner,
                 family=owners.family[spheres.owner.long()],
@@ -328,111 +346,214 @@ def _capped(table, cap, bit):
     return table.replace(count=torch.clamp(table.count, max=cap)), ovf
 
 
-def refresh_contacts(state: SimState, params: RuntimeParams,
-                     cfg: SolverConfig, mark=None) -> SimState:
-    """One refresh of the contact tables. `mark`, if given, is called
-    with "table", "pairs", "history" and "finalize" at the single-grid SS
-    search's stage boundaries (after the sorted table, kernel C, the
-    history carry and the SS table's finalize)."""
-    mark = mark or _no_mark
-    vs = cfg.voxel_size
+def _ss_pairs(q, spheres, params, cfg, mark):
+    """The SS search over every sphere: kernel C on one grid, or the
+    two-class search. Returns (idA, idB, count, sorted table, overflow
+    bits)."""
+    if cfg.cd_two_class:
+        return two_class_pairs(q, spheres.radius <= params.cls_thr, params,
+                               cfg, spheres.n)
+    idA, idB, n_ss, tab = sweep.find_pairs_ss(
+        q["pos_cd"], q["reach"], q["owner"], q["family"],
+        params.family_mask, q["bin_size"], q["nb_cd"], cfg.cap_ss,
+        mark=mark)
+    return idA, idB, n_ss, tab, torch.zeros((), dtype=I, device=idA.device)
+
+
+def _refresh(state, params, cfg, mark, q, ss_pairs, take=None):
+    """The tables of a refresh from the SS search `ss_pairs`(q) -> (idA,
+    idB, count, sorted table, overflow bits). `state` holds every owner,
+    sphere and triangle and the old tables' keys and history; the pair
+    lists are whole, carried once, and `take`(kind, table), where given,
+    picks the rows of each carried table that this rank finalizes and
+    keeps (a mesh refresh)."""
     owners, spheres, tris, anals = (state.owners, state.spheres,
                                     state.tris, state.anals)
     wc_names = cfg.force_model.contact_wildcards
-    dev = state.device
-
-    q = ss_search_inputs(state, params, vs)
-    pos, margin, raw_absv = q["pos"], q["margin"], q["raw_absv"]
+    persistency = cfg.use_persistency
     sph_family = q["family"]
+    raw_absv = q["raw_absv"]
     # uncapped |v| for the divergence guard; a non-finite value trips it
     max_vel = torch.where(torch.all(torch.isfinite(raw_absv)),
                           raw_absv.max(), torch.inf).to(F)
-
-    if cfg.cd_two_class:
-        idA, idB, n_ss, tab, overflow = two_class_pairs(
-            q, spheres.radius <= params.cls_thr, params, cfg, spheres.n)
-    else:
-        idA, idB, n_ss, tab = sweep.find_pairs_ss(
-            q["pos_cd"], q["reach"], spheres.owner, sph_family,
-            params.family_mask, q["bin_size"], q["nb_cd"], cfg.cap_ss,
-            mark=mark)
-        overflow = torch.zeros((), dtype=I, device=dev)
+    idA, idB, n_ss, tab, overflow = ss_pairs(q)
     mark("pairs")
-    persistency = cfg.use_persistency
-    ss, lost_ss = history.carry_history(
-        state.ss, idA, idB, torch.clamp(n_ss, max=cfg.cap_ss).to(I),
-        wc_names, persistency)
-    if persistency:
-        ss = _mark_persistent(ss, sph_family, sph_family, params)
-    mark("history")
-    overflow |= torch.where(n_ss > cfg.cap_ss, OVF_SS_CAP, 0).to(I)
-    ss = forces.finalize_table("ss", ss, owners, spheres, tris, anals,
-                               params, cfg.force_model,
-                               uniq_cap=cfg.uniq_cap)
-    if persistency:
-        ss, ovf = _capped(ss, cfg.cap_ss, OVF_SS_CAP)
-        overflow |= ovf
+    lost = state.lost_contacts
+
+    def refreshed(kind, a, b, n, bit, fam_b, uniq_cap=0):
+        """Carry, mark, cap and finalize one table; its live count."""
+        nonlocal overflow, lost
+        cap = getattr(cfg, _CAPS[kind])
+        t, n_lost = history.carry_history(
+            getattr(state, kind), a, b, torch.clamp(n, max=cap).to(I),
+            wc_names, persistency)
+        lost = lost + n_lost
+        if persistency:
+            t = _mark_persistent(t, sph_family, fam_b, params)
+        if kind == "ss":
+            mark("history")
+        overflow |= torch.where(n > cap, bit, 0).to(I)
+        if persistency:
+            t, ovf = _capped(t, cap, bit)
+            overflow |= ovf
+        count = t.count
+        if take is not None:
+            t = take(kind, t)
+        t = forces.finalize_table(kind, t, owners, spheres, tris, anals,
+                                  params, cfg.force_model, uniq_cap=uniq_cap)
+        return t, count
+
+    ss, n_live = refreshed("ss", idA, idB, n_ss, OVF_SS_CAP, sph_family,
+                           cfg.uniq_cap)
     if cfg.uniq_cap:
         overflow |= torch.where(ss.uniq_max > cfg.uniq_cap, OVF_UNIQ,
                                 0).to(I)
     mark("finalize")
 
-    st, lost_st = state.st, torch.zeros((), dtype=I, device=dev)
+    st = state.st
     if tris.n > 0:
         tA, tB, n_st, ovf_st = st_pairs(state, params, cfg, q, tab)
-        st, lost_st = history.carry_history(
-            state.st, tA, tB, torch.clamp(n_st, max=cfg.cap_st).to(I),
-            wc_names, persistency)
-        if persistency:
-            st = _mark_persistent(st, sph_family,
-                                  owners.family[tris.owner.long()], params)
-        st = forces.finalize_table("st", st, owners, spheres, tris, anals,
-                                   params, cfg.force_model)
-        if persistency:
-            st, ovf = _capped(st, cfg.cap_st, OVF_ST_CAP)
-            overflow |= ovf
-        overflow |= ovf_st | torch.where(n_st > cfg.cap_st, OVF_ST_CAP,
-                                         0).to(I)
+        overflow |= ovf_st
+        st, _ = refreshed("st", tA, tB, n_st, OVF_ST_CAP,
+                          owners.family[tris.owner.long()])
 
-    sa, lost_sa = state.sa, torch.zeros((), dtype=I, device=dev)
+    sa = state.sa
     if anals.n > 0:
         own_b = anals.owner.long()
-        base_b = voxel.decode_f32(owners.vox[own_b], owners.loc[own_b], vs)
+        base_b = voxel.decode_f32(owners.vox[own_b], owners.loc[own_b],
+                                  cfg.voxel_size)
         obj_pos = base_b + quat.rotate(owners.quat[own_b], anals.relpos)
         obj_dir = quat.rotate(owners.quat[own_b], anals.direction)
         m_a = owner_margin(owners, anals.owner,
                            torch.zeros_like(anals.normal_sign), params)
         ovl, _, _ = narrowphase.sphere_analytical(
-            pos[:, None, :], spheres.radius[:, None],
+            q["pos"][:, None, :], spheres.radius[:, None],
             anals.objtype[None, :], obj_pos[None], obj_dir[None],
             anals.size[None], anals.normal_sign[None, :],
         )
-        ovl_m = ovl + margin[:, None] + m_a[None, :]
+        ovl_m = ovl + q["margin"][:, None] + m_a[None, :]
         aA, aB, n_sa = binning.find_pairs_sa(
             ovl_m, spheres.owner, sph_family, anals.owner,
             owners.family[own_b], params.family_mask, cfg.cap_sa)
-        sa, lost_sa = history.carry_history(
-            state.sa, aA, aB, torch.clamp(n_sa, max=cfg.cap_sa).to(I),
-            wc_names, persistency)
-        if persistency:
-            sa = _mark_persistent(sa, sph_family, owners.family[own_b],
-                                  params)
-        sa = forces.finalize_table("sa", sa, owners, spheres, tris, anals,
-                                   params, cfg.force_model)
-        if persistency:
-            sa, ovf = _capped(sa, cfg.cap_sa, OVF_SA_CAP)
-            overflow |= ovf
-        overflow |= torch.where(n_sa > cfg.cap_sa, OVF_SA_CAP, 0).to(I)
+        sa, _ = refreshed("sa", aA, aB, n_sa, OVF_SA_CAP,
+                          owners.family[own_b])
 
     overflow |= torch.where(~(max_vel <= params.error_out_vel), OVF_VEL,
                             0).to(I)
-    avg_cnt = 2.0 * ss.count.to(F) / max(spheres.n, 1)
+    avg_cnt = 2.0 * n_live.to(F) / max(spheres.n, 1)
     overflow |= torch.where(avg_cnt > params.error_out_avg_contacts,
                             OVF_AVG_CONTACTS, 0).to(I)
-    return state.replace(
-        ss=ss, st=st, sa=sa, overflow=overflow, max_vel=max_vel,
-        lost_contacts=state.lost_contacts + lost_ss + lost_st + lost_sa,
-    )
+    return state.replace(ss=ss, st=st, sa=sa, overflow=overflow,
+                         max_vel=max_vel, lost_contacts=lost)
+
+
+def refresh_contacts(state: SimState, params: RuntimeParams,
+                     cfg: SolverConfig, mark=None, mesh=None) -> SimState:
+    """One refresh of the contact tables. `mark`, if given, is called
+    with "table", "pairs", "history" and "finalize" at the single-grid SS
+    search's stage boundaries (after the sorted table, kernel C, the
+    history carry and the SS table's finalize). With `mesh`, `state` is
+    this rank's shard (``parallel.mesh.shard_state``): see
+    ``_refresh_on_mesh``."""
+    mark = mark or _no_mark
+    if mesh is not None:
+        return _refresh_on_mesh(state, params, cfg, mark, mesh)
+    q = ss_search_inputs(state, params, cfg.voxel_size)
+    return _refresh(state, params, cfg, mark, q,
+                    lambda q: _ss_pairs(q, state.spheres, params, cfg,
+                                        mark))
+
+
+def spatial_capx_auto(n_spheres: int, n_dev: int) -> int:
+    """Rows of a spatial exchange bucket when cfg.spatial_capx is 0."""
+    return max(128, 2 * n_spheres // (n_dev * n_dev) + 128)
+
+
+def _gather_keys(table, mesh):
+    """A split table's keys, persistency marks and wildcards from every
+    rank: what the history carry reads of the old table."""
+    names = list(table.wildcards)
+    a, b, p, *wc = mesh.gather_fields(
+        [table.idA, table.idB, table.persist,
+         *[table.wildcards[k] for k in names]])
+    return table.replace(idA=a, idB=b, persist=p,
+                         wildcards=dict(zip(names, wc)))
+
+
+def _refresh_on_mesh(state, params, cfg, mark, mesh):
+    """The refresh of a rank's shard. The owners, spheres and triangles
+    and the old tables' keys are gathered from every rank; the SS pairs
+    come from the spatial search (cfg.spatial_refresh, with the spheres
+    dividing by the world size as the capacities do: world axes, this
+    rank's index shard searched by slab, the ranks' lists gathered, and
+    with persistency their live rows compacted to the front) or from the
+    search over every sphere, which each rank runs alike; ST and SA
+    pairs likewise. Each table's history is carried once over its whole
+    list, and each rank finalizes and keeps its own block of the rows,
+    cap / D of them. The overflow word is reduced over the ranks, so
+    every rank takes the same growth and retry."""
+    lay = state.layout
+    if lay is None:
+        raise ValueError("a refresh on a mesh takes a rank's shard "
+                         "(parallel.mesh.shard_state)")
+    d, r = mesh.size, mesh.rank
+    for name in _CAPS.values():
+        if getattr(cfg, name) % d:
+            raise ValueError(f"{name} {getattr(cfg, name)} does not divide "
+                             f"by {d} ranks (Engine(cfg, mesh) rounds it)")
+    fresh = ["ss"] + (["st"] if lay.n_tris else []) + (
+        ["sa"] if state.anals.n else [])
+    whole = {rec: pmesh.gather_record(getattr(state, rec), mesh)
+             for rec in ("owners", "spheres", "tris") if getattr(lay, rec)}
+    whole.update({k: _gather_keys(getattr(state, k), mesh)
+                  for k in fresh if k in lay.tables})
+    g = state.replace(**whole, layout=None)
+    spatial = cfg.spatial_refresh and lay.n_spheres % d == 0
+    q = ss_search_inputs(g, params, cfg.voxel_size, relabel=not spatial)
+
+    def spatial_pairs(q):
+        s = lay.n_spheres // d
+        rows = slice(r * s, (r + 1) * s)
+        capx = cfg.spatial_capx or spatial_capx_auto(lay.n_spheres, d)
+        a, b, n_ss, _, bucket_ovf = find_pairs_ss_spatial(
+            q["pos"][rows], q["reach"][rows], q["owner"][rows],
+            q["family"][rows], params.family_mask, q["bin_size"],
+            q["nb_cd"], params.domain, cfg.cap_ss, mesh, capx)
+        idA, idB = mesh.gather_rows(torch.stack([a, b], 1)).unbind(1)
+        if cfg.use_persistency:
+            # re-injection appends after the count: live rows first
+            order = torch.sort((idA < 0).to(I), stable=True).indices
+            idA, idB = idA[order], idB[order]
+        # the ST search reads the sorted table of every sphere
+        tab = (binning.build_sphere_table(
+            q["pos"], q["reach"], q["owner"], q["family"], q["bin_size"],
+            q["nb_cd"], max(lay.n_spheres, 1)) if lay.n_tris else None)
+        return (idA.contiguous(), idB.contiguous(), n_ss, tab,
+                torch.where(bucket_ovf, OVF_SPATIAL_BUCKET, 0).to(I))
+
+    def take(kind, t):
+        c = getattr(cfg, _CAPS[kind]) // d
+        rows = slice(r * c, (r + 1) * c)
+        idA = t.idA[rows].contiguous()
+        fused = kind == "ss" and forces.fused_ss(cfg.force_model)
+        return ContactTable.empty(c, fused=fused, device=idA.device).replace(
+            idA=idA, idB=t.idB[rows].contiguous(),
+            persist=t.persist[rows].contiguous(),
+            wildcards={k: v[rows].contiguous()
+                       for k, v in t.wildcards.items()},
+            count=(idA >= 0).sum().to(I))
+
+    out = _refresh(g, params, cfg, mark, q,
+                   spatial_pairs if spatial else
+                   (lambda q: _ss_pairs(q, g.spheres, params, cfg, mark)),
+                   take)
+    bit = torch.arange(31, dtype=I, device=out.overflow.device)
+    flags = mesh.all_max((out.overflow >> bit) & 1)
+    return out.replace(
+        owners=state.owners, spheres=state.spheres, tris=state.tris,
+        overflow=(flags << bit).sum().to(I),
+        layout=lay._replace(tables=tuple(
+            k for k in _CAPS if k in fresh or k in lay.tables)))
 
 
 # ---------------------------------------------------------------------------
@@ -440,23 +561,58 @@ def refresh_contacts(state: SimState, params: RuntimeParams,
 # ---------------------------------------------------------------------------
 
 
+def _mesh_inputs(state, mesh):
+    """On a mesh: every owner (one all-gather of the owner records where
+    they are split), and the spheres and triangles whose geometry
+    wildcards a contact pass reads by global id. Raises where a table the
+    step would run is replicated: its sums would count once per rank."""
+    lay = state.layout
+    if lay is None:
+        raise ValueError("a step on a mesh takes a rank's shard "
+                         "(parallel.mesh.shard_state)")
+    for kind, n_geo in (("ss", state.spheres.n), ("st", state.tris.n),
+                        ("sa", state.anals.n)):
+        if n_geo and getattr(state, kind).cap and kind not in lay.tables:
+            raise ValueError(f"the {kind} table is replicated on the mesh "
+                             "(its capacity does not divide by the ranks): "
+                             "refresh it first")
+
+    def whole(rec, split):
+        return (pmesh.gather_record(rec, mesh) if split and rec.wildcards
+                else rec)
+
+    owners = (pmesh.gather_record(state.owners, mesh) if lay.owners
+              else state.owners)
+    return (owners, whole(state.spheres, lay.spheres),
+            whole(state.tris, lay.tris))
+
+
 def dynamics_step(state: SimState, params: RuntimeParams,
                   cfg: SolverConfig, h: float | None = None,
                   tables: PrescriptionTables | None = None,
-                  mark=None) -> SimState:
+                  mark=None, mesh=None) -> SimState:
     """One step. `h` is params.h as a host float and `tables` the static
     prescription tables (``static_tables``); run_steps passes both once
     per chunk so a step reads nothing back from the device. The tables
     are evaluated at the step's start time, the family-change rules
     applied to the owners that come out of the integrator. `mark`, if
     given, is called with "forces" after the contact passes and with
-    "reduced" after the ST and SA sums."""
+    "reduced" after the ST and SA sums.
+
+    With `mesh`, `state` is this rank's shard: the passes run on its
+    table rows against every owner's record (``_mesh_inputs``), and the
+    partial (N, 6) wrench is reduce-scattered onto the rank's owners, or
+    all-reduced where the owners are replicated, before they are
+    integrated."""
     mark = mark or _no_mark
     if h is None:
         h = float(params.h)
     if tables is None:
         tables = static_tables(cfg.prescriptions, state.device)
-    owners = state.owners
+    if mesh is None:
+        owners, spheres, tris = state.owners, state.spheres, state.tris
+    else:
+        owners, spheres, tris = _mesh_inputs(state, mesh)
     model = cfg.force_model
     n = owners.n
 
@@ -482,9 +638,8 @@ def dynamics_step(state: SimState, params: RuntimeParams,
         if krec is None:
             krec = forces.pack_kinematics(owners)
         p = forces.contact_pass(
-            kind, wide[kind], owners, state.spheres, state.tris,
-            state.anals, params, state.time, cfg.voxel_size, model,
-            krec=krec)
+            kind, wide[kind], owners, spheres, tris, state.anals, params,
+            state.time, cfg.voxel_size, model, krec=krec)
         wide[kind] = p["table"]
         passes.append(p)
     mark("forces")
@@ -492,11 +647,14 @@ def dynamics_step(state: SimState, params: RuntimeParams,
         acc = forces.reduce_wrench_segment(n, passes, out=acc)
     elif acc is None:
         acc = torch.zeros((n, 6), dtype=F, device=state.device)
+    if mesh is not None:
+        acc = (mesh.reduce_rows(acc) if state.layout.owners
+               else mesh.all_sum(acc))
     f_acc, t_acc = acc[:, :3], acc[:, 3:]
     mark("reduced")
 
     owners = integrator.integrate_owners(
-        owners, f_acc, t_acc, params, tables.at(state.time),
+        state.owners, f_acc, t_acc, params, tables.at(state.time),
         cfg.voxel_size, cfg.integrator, state.time)
     owners = integrator.apply_family_changes(
         owners, cfg.family_changes, cfg.voxel_size, state.time)
@@ -506,14 +664,14 @@ def dynamics_step(state: SimState, params: RuntimeParams,
 
 
 def run_steps(state: SimState, params: RuntimeParams, cfg: SolverConfig,
-              n_steps: int, h: float | None = None) -> SimState:
+              n_steps: int, h: float | None = None, mesh=None) -> SimState:
     """`n_steps` steps. `h` is float(params.h), read here unless given:
     with it given, the steps read nothing back from the device."""
     if h is None:
         h = float(params.h)
     tables = static_tables(cfg.prescriptions, state.device)
     for _ in range(n_steps):
-        state = dynamics_step(state, params, cfg, h, tables)
+        state = dynamics_step(state, params, cfg, h, tables, mesh=mesh)
     return state
 
 
@@ -550,7 +708,15 @@ class Engine:
     #: one-bin-per-sphere floor, 2 x the largest reach)
     BIN_LADDER = (1.0, 1.3, 1.7, 2.2, 3.0)
 
-    def __init__(self, cfg: SolverConfig, fuse: int = 8):
+    def __init__(self, cfg: SolverConfig, mesh=None, fuse: int = 8):
+        #: the ``parallel.mesh.Mesh`` a multi-device run shards over, or
+        #: None; on a mesh every method takes and returns this rank's
+        #: shard, and the capacities stay multiples of the world size
+        self.mesh = mesh
+        if mesh is not None:
+            cfg = dataclasses.replace(cfg, **{
+                name: self._divisible(getattr(cfg, name))
+                for name in _CAPS.values()})
         self.cfg = cfg
         #: chunks per measured block
         self.fuse = fuse
@@ -598,6 +764,18 @@ class Engine:
             print(f"[dem_engine_tpu_torch][{level}] {msg}", file=sys.stderr,
                   flush=True)
 
+    def _divisible(self, cap: int) -> int:
+        """`cap` rounded up to a multiple of the world size."""
+        d = self.mesh.size if self.mesh is not None else 1
+        return -(-cap // d) * d
+
+    def _count(self, state, kind) -> int:
+        """A table's live count over every rank."""
+        t = getattr(state, kind)
+        if self.mesh is not None and kind in state.layout.tables:
+            return int(self.mesh.all_sum(t.count))
+        return int(t.count)
+
     def _config_changed(self):
         """What the JAX engine's rebuild after a change of capacities or
         config does here: there is no compiled program to drop, only the
@@ -644,6 +822,12 @@ class Engine:
         self.blocks.append(rec)
         if rec["counted"]:
             self._tune(rec)
+        if self.mesh is not None and (self.auto_freq or self.auto_bin):
+            # each rank timed its own blocks: all take rank 0's move
+            k, bf = self.mesh.broadcast(torch.tensor(
+                [float(self.active_freq or 0), self.bin_factor],
+                dtype=torch.float64, device=self.mesh.device)).tolist()
+            self.active_freq, self.bin_factor = int(k) or None, bf
         # what the next block to start runs at
         rec["k_next"], rec["bin_next"] = self.active_freq, self.bin_factor
 
@@ -723,7 +907,14 @@ class Engine:
         for bit, name in ((OVF_SS_CAP, "cap_ss"), (OVF_ST_CAP, "cap_st"),
                           (OVF_SA_CAP, "cap_sa")):
             if ovf & bit:
-                changes[name] = int(getattr(cfg, name) * _GROWTH) + 64
+                changes[name] = self._divisible(
+                    int(getattr(cfg, name) * _GROWTH) + 64)
+        if ovf & OVF_SPATIAL_BUCKET:
+            d, n_sph = ((self.mesh.size, state.layout.n_spheres)
+                        if self.mesh is not None else (1, state.spheres.n))
+            changes["spatial_capx"] = int(
+                (cfg.spatial_capx or spatial_capx_auto(n_sph, d))
+                * _GROWTH) + 128
         if ovf & OVF_ST_OCC:
             mpb = int(cfg.max_per_bin * _GROWTH) + 8
             if mpb > 1024:
@@ -762,6 +953,9 @@ class Engine:
                             f"0x{ovf:x}: {changes}")
             self._config_changed()
         self.cfg = dataclasses.replace(cfg, **changes)
+        if self.mesh is not None:
+            # a refresh on a mesh builds its tables anew at the new sizes
+            return state
         ss = state.ss.grown(self.cfg.cap_ss)
         if self.cfg.uniq_cap != cfg.uniq_cap:
             ss = ss.replace(**uniq_fields(self.cfg, ss.cap, state.owners.n,
@@ -778,10 +972,11 @@ class Engine:
         changes = {}
         for name, cap in (("ss", cfg.cap_ss), ("st", cfg.cap_st),
                           ("sa", cfg.cap_sa)):
-            cnt = int(getattr(state, name).count)
+            cnt = self._count(state, name)
             quantum = 512 if name == "ss" else 256
             quantum = max(quantum, 1 << max(0, cnt.bit_length() - 5))
-            need = max(64, -(-int(cnt * 1.25 + 64) // quantum) * quantum)
+            need = self._divisible(
+                max(64, -(-int(cnt * 1.25 + 64) // quantum) * quantum))
             # 1.4: a growth lands at 1.6x the overflowed capacity, which
             # must not shrink again at once
             if cap > 1.4 * need:
@@ -792,9 +987,19 @@ class Engine:
         self.timers["shrinks"] += 1
         self.cfg = dataclasses.replace(cfg, **changes)
         self._config_changed()
-        return state.replace(ss=state.ss.shrunk(self.cfg.cap_ss),
-                             st=state.st.shrunk(self.cfg.cap_st),
-                             sa=state.sa.shrunk(self.cfg.cap_sa))
+        return state.replace(**{
+            kind: self._shrunk(state, kind, getattr(self.cfg, name))
+            for kind, name in _CAPS.items()})
+
+    def _shrunk(self, state, kind, cap):
+        """A table at its new capacity: on a mesh a split table's rows are
+        gathered, cut and split anew (its live rows may sit on any rank)."""
+        t = getattr(state, kind)
+        if self.mesh is None or kind not in state.layout.tables:
+            return t.shrunk(cap)
+        lay = state.layout
+        whole = pmesh.gather_table(t, self.mesh, lay.n_owners)
+        return pmesh.shard_table(whole.shrunk(cap), self.mesh, lay.n_owners)
 
     def refresh(self, state: SimState, params: RuntimeParams) -> SimState:
         """Refresh with capacity growth, retried from the retained
@@ -803,7 +1008,8 @@ class Engine:
             self.refresh_attempts += 1
             if attempt:
                 self.timers["retries"] += 1
-            new_state = refresh_contacts(state, params, self.cfg)
+            new_state = refresh_contacts(state, params, self.cfg,
+                                         mesh=self.mesh)
             ovf = int(new_state.overflow)
             if not ovf & _CAP_OVF:
                 self._check_vel(new_state, ovf)
@@ -867,7 +1073,8 @@ class Engine:
         # complete
         self.read_timers()
         if blk is not None and "ss_count" not in blk:
-            blk["ss_count"], blk["cap_ss"] = int(state.ss.count), state.ss.cap
+            blk["ss_count"] = self._count(state, "ss")
+            blk["cap_ss"] = self.cfg.cap_ss
         if shrink:
             state = self.maybe_shrink(state)
         if blk is not None:
@@ -882,7 +1089,8 @@ class Engine:
         marks, appended to `marks`. Nothing in it reads back from the
         device."""
         marks.append(time_mark(state.device))
-        state = run_steps(state, params, self.cfg, n_steps, h=h)
+        on_mesh = {} if self.mesh is None else {"mesh": self.mesh}
+        state = run_steps(state, params, self.cfg, n_steps, h=h, **on_mesh)
         marks.append(time_mark(state.device))
         return state
 

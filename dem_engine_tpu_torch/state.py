@@ -340,6 +340,10 @@ class SimState(_Replace):
     overflow: torch.Tensor       # i32[] bit flags
     max_vel: torch.Tensor        # f32[] measured at the last refresh
     lost_contacts: torch.Tensor  # i32[] cumulative dropped-history count
+    #: on a mesh, what this rank's shard holds (``parallel.mesh.Layout``:
+    #: the global counts and which records are split); None for a whole
+    #: state
+    layout: Any = None
 
     @property
     def device(self) -> torch.device:
@@ -407,6 +411,11 @@ class SolverConfig:
     use_persistency: bool = False
     prescriptions: Tuple[Any, ...] = ()
     family_changes: Tuple[Any, ...] = ()
+    #: spatially decomposed SS search over an Engine's mesh: one x-slab
+    #: per rank, `spatial_capx` rows per exchange bucket (0 = auto;
+    #: OVF_SPATIAL_BUCKET grows it), ``parallel.spatial``
+    spatial_refresh: bool = False
+    spatial_capx: int = 0
 
 
 def _join(path, name):

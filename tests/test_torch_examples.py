@@ -34,7 +34,6 @@ on the CPU (``dem_engine_tpu_torch.examples``,
 import difflib
 import importlib.util
 import os
-import subprocess
 import sys
 import types
 
@@ -50,7 +49,8 @@ from dem_engine_tpu.models.force_model import ContactContext as JContext
 from dem_engine_tpu_torch.examples import (EXAMPLES_DIR, NAMES, TWINS,
                                            load_example, source_path)
 from dem_engine_tpu_torch.tools import flagship_wheeldp as tflag
-from test_torch_slice import jax_steps_without_donation  # noqa: F401
+from test_torch_slice import (finished, jax_steps_without_donation,  # noqa
+                              started_python)
 from torch_scenes import (CALLABLES, FORCE_MODELS, TIMES, contact_arrays,
                           life_board, make_context, recorded_build,
                           run_chunks, scene, twin_outputs)
@@ -105,8 +105,11 @@ def test_example_takes_a_chunk(name, tmp_path):
     assert not bad, bad
 
 
-def test_loading_imports_no_jax():
-    code = (
+@pytest.fixture(scope="module", autouse=True)
+def loading_probe():
+    """The interpreter of ``test_loading_imports_no_jax``, started with
+    the module so that it loads while the other tests run."""
+    proc = started_python(
         "import sys\n"
         "from dem_engine_tpu_torch.examples import NAMES, load_example\n"
         "mods = [load_example(n, 'cpu') for n in NAMES]\n"
@@ -116,12 +119,15 @@ def test_loading_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib', 'dem_engine_tpu.')) "
         "or m == 'dem_engine_tpu' or m in NAMES)\n"
-        "assert not bad, bad\n"
-    )
-    env = dict(os.environ, PYTHONPATH=REPO)
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
+        "assert not bad, bad\n")
+    yield proc
+    proc.kill()
+    proc.communicate()
+
+
+def test_loading_imports_no_jax(loading_probe):
+    code, err = finished(loading_probe)
+    assert code == 0, err
 
 
 def test_loader_needs_a_card_unless_asked():

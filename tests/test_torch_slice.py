@@ -282,8 +282,29 @@ def test_bed_with_rolling_is_ill_conditioned(bed, bed_fused, port_bed):
     assert _rel(_np(still.omg), _np(moved.omg)) < 1e-6
 
 
-def test_import_has_no_jax():
-    code = (
+def started_python(code):
+    """A fresh interpreter running `code` from the repository's root,
+    started now; ``finished`` waits for it."""
+    return subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
+                            env=dict(os.environ, PYTHONPATH=REPO),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finished(proc, timeout=120):
+    """(returncode, stderr) of a ``started_python`` process."""
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    finally:
+        proc.kill()
+    return proc.returncode, err
+
+
+@pytest.fixture(scope="module", autouse=True)
+def import_probe():
+    """The interpreter of ``test_import_has_no_jax``, started with the
+    module so that it imports while the other tests run."""
+    proc = started_python(
         "import sys\n"
         "import pkgutil, dem_engine_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(\n"
@@ -294,9 +315,12 @@ def test_import_has_no_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith(('jax.', 'jaxlib', 'dem_engine_tpu.')) "
         "or m == 'dem_engine_tpu')\n"
-        "assert not bad, bad\n"
-    )
-    env = dict(os.environ, PYTHONPATH=REPO)
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
+        "assert not bad, bad\n")
+    yield proc
+    proc.kill()
+    proc.communicate()
+
+
+def test_import_has_no_jax(import_probe):
+    code, err = finished(import_probe)
+    assert code == 0, err

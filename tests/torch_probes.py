@@ -5,6 +5,14 @@ test module): each prints what it measured.
         the cone-penetration validation scene (380 clumps), every clump
         moved NUDGE metres in x after Initialize; prints the test's
         forces and corrcoef(depths, forces) (the bound is > 0.5)
+    python tests/torch_probes.py cone-batch jax|port [DEVICE] [JOBS]
+        the cone run at the 21 nudges k * 4e-8 m, k = -10 .. 10, JOBS
+        (4) processes at a time; prints each run's line, then the mean of
+        corrcoef and its standard error
+    python tests/torch_probes.py cone-welch LOG [LOG ...]
+        the corrcoef values of the cone lines in the logs, by package:
+        count, mean and standard error of each, and Welch's t-test of
+        the two means (two-sided p, and one-sided for port < jax)
     python tests/torch_probes.py cone-st
         one JAX run of that scene taken at four cone depths: the port's
         refresh of each state against JAX's (SS, ST and SA pair sets)
@@ -65,6 +73,54 @@ def cone(which, nudge, device="cpu"):
     f = np.asarray([x[1] for x in curve])
     print(which, nudge, "depths", d.tolist(), "forces", f.tolist(), "corr",
           float(np.corrcoef(d, f)[0, 1]), flush=True)
+
+
+CONE_NUDGES = [k * 4e-8 for k in range(-10, 11)]
+
+
+def cone_batch(which, device="cpu", jobs=4):
+    import subprocess
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(nudge):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "cone", which,
+             repr(nudge), device], capture_output=True, text=True,
+            env=dict(os.environ, PYTHONPATH=REPO))
+        lines = [ln for ln in out.stdout.splitlines() if " corr " in ln]
+        return lines[-1] if lines else (
+            f"{which} {nudge} failed: {out.stderr[-400:]}")
+
+    with ThreadPoolExecutor(int(jobs)) as pool:
+        lines = list(pool.map(one, CONE_NUDGES))
+    for ln in lines:
+        print(ln, flush=True)
+    corr = np.asarray([float(ln.split(" corr ")[1]) for ln in lines
+                       if " corr " in ln])
+    print(f"{which}: {len(corr)} runs, mean corr {corr.mean():.4f}, "
+          f"standard error {corr.std(ddof=1) / np.sqrt(len(corr)):.4f}, "
+          f"{int((corr > 0.5).sum())} above the bound 0.5", flush=True)
+
+
+def cone_welch(*logs):
+    from scipy import stats
+
+    corr = {"jax": [], "port": []}
+    for path in logs:
+        for ln in open(path):
+            head = ln.split()
+            if len(head) > 2 and head[0] in corr and " corr " in ln:
+                corr[head[0]].append(float(ln.split(" corr ")[1]))
+    for k, v in corr.items():
+        v = np.asarray(v)
+        print(f"{k}: n {len(v)}, mean {v.mean():.4f}, standard error "
+              f"{v.std(ddof=1) / np.sqrt(len(v)):.4f}, above 0.5: "
+              f"{int((v > 0.5).sum())}")
+    t = stats.ttest_ind(corr["port"], corr["jax"], equal_var=False)
+    one = stats.ttest_ind(corr["port"], corr["jax"], equal_var=False,
+                          alternative="less")
+    print(f"Welch: t {t.statistic:.3f}, df {t.df:.1f}, p two-sided "
+          f"{t.pvalue:.4f}, p one-sided (port < jax) {one.pvalue:.4f}")
 
 
 def cone_st():
@@ -163,6 +219,10 @@ if __name__ == "__main__":
     what, args = sys.argv[1], sys.argv[2:]
     if what == "cone":
         cone(args[0], float(args[1]), *args[2:3])
+    elif what == "cone-batch":
+        cone_batch(*args)
+    elif what == "cone-welch":
+        cone_welch(*args)
     elif what == "cone-st":
         cone_st()
     elif what == "flagship":
