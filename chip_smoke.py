@@ -203,6 +203,24 @@ Phases, each printing its own numbers; any failure exits nonzero:
                attempt), physics. Profiled at the end: launches and
                device time a step with and without the mesh, NCCL's
                share
+  18 goldens   the JAX package's engine goldens (tests/torch_behaviour.py,
+               the bodies of tests/test_torch_goldens.py) through
+               Engine.advance at their own sizes and lengths: the five of
+               tests/test_engine_two_spheres.py, slide-to-roll and the
+               settling bed (with --phases goldens-long also the
+               dumbbell, the clump collision and the mesh bounce; both
+               names run all ten); each reading beside the JAX bound,
+               steps, ms/step and the launches of A, B and C on the
+               path. Then the kernels at the goldens' shapes, their
+               launches not counted: C against the plain sweep (pair
+               table and count, also at a cap below the count) on the
+               two-sphere table (cap_ss 16, one partial tile) in contact
+               and on the settling bed's after its 12,000 steps; B with
+               A's sums against a float64 evaluation of its plain rows
+               there; A against a float64 sum on those SS tables, the
+               bed's SA table and the mesh bounce's ST rows in contact,
+               and exactly zero for every owner with no live row (also
+               on the two-sphere table with no contact)
 With every phase run, the line before the last holds the kernels' JSON
 record and the one before it the card's name and power limit; the last
 line is the JSON verdict.
@@ -2742,6 +2760,7 @@ def phase_rest(torch, n_clumps, k, tune_steps=3200, steps=250,
 
     from dem_engine_tpu_torch import Engine
     from dem_engine_tpu_torch.cases import R, bed_geometry
+    from dem_engine_tpu_torch.ops import binning, sweep
     from dem_engine_tpu_torch.state import state_tensors
 
     h = API_H
@@ -2800,10 +2819,16 @@ def phase_rest(torch, n_clumps, k, tune_steps=3200, steps=250,
         bf_max = s.engine.bin_factor
     c_tabs = {}
     for bf in (bf_max, 1.0):
+        saved = read_counts()
         same, n_pairs, mpb, args = c_against_plain(torch, s, bf)
         c_tabs[bf] = args
+        ms = cuda_ms(torch, lambda: sweep.sweep_table_cuda(*args))
+        pms = cuda_ms(torch, lambda: binning.sweep_table(*args, mpb),
+                      reps=5, warm=1)
+        set_counts(saved)
         print(f"[rest] C at bin factor {bf:g}: {n_pairs} pairs, max bin "
-              f"occupancy {mpb}, identical to the plain sweep {same}",
+              f"occupancy {mpb}, identical to the plain sweep {same}; "
+              f"kernel {ms:.4f} ms by events, plain {pms:.3f} ms",
               flush=True)
         if not same:
             fail(f"kernel C differs from the plain sweep at bin factor {bf}")
@@ -3110,19 +3135,189 @@ def demos_device(torch, done):
               f"(refresh included), {ms:.3f} ms/step timed", flush=True)
 
 
+# the goldens the default run holds (the five of
+# tests/test_engine_two_spheres.py, slide-to-roll and the settling bed,
+# whose final tables the kernels are held on); the other three run under
+# --phases goldens-long and in tests/test_torch_goldens.py
+GOLDENS_DEFAULT = ("head_on_restitution", "head_on_frictionless_model",
+                   "no_contact_no_motion", "plane_bounce_restitution",
+                   "head_on_restitution_segment_reduce", "slide_to_roll",
+                   "settling_bed")
+
+
+def phase_goldens(torch, names, kernels):
+    """Phase 18: the engine goldens of the JAX package's tests
+    (tests/torch_behaviour.py's GOLDENS, those in `names`) through
+    Engine.advance on the card at their own lengths: each reading beside
+    the JAX bound, steps, ms/step and the launches of A, B and C, which
+    must be on the path (B every step, A at least every step, C at least
+    every refresh); with `kernels`, then C, B and A at the goldens'
+    shapes (``goldens_kernels``). Fails on any miss, after running every
+    golden."""
+    import torch_behaviour as tb
+
+    t_phase = time.perf_counter()
+    missed = []
+    runs = {}
+    for g in tb.GOLDENS:
+        if g.name not in names:
+            continue
+        reset_counts()
+        r = runs[g.name] = g.run(DEVICE)
+        counts = read_counts()
+        steps = r["steps"]
+        try:
+            g.check(r)
+            verdict = "held"
+        except AssertionError as e:
+            why = str(e).strip().splitlines() or ["assertion failed"]
+            verdict = f"MISSED ({why[-1]})"
+        print(f"[goldens] {g.name} ({g.jax_test}): {g.reading(r)}; bound "
+              f"{g.bound}: {verdict}; {steps} steps, "
+              f"{r['seconds'] * 1e3 / steps:.3f} ms/step, launches A "
+              f"{counts['A']} B {counts['B']} C {counts['C']}", flush=True)
+        if verdict != "held":
+            missed.append(g.name)
+        k = r["k"]
+        if (counts["B"] != steps or counts["A"] < steps
+                or counts["C"] < -(-steps // k)):
+            fail(f"goldens: {g.name}: launches {counts} off its path (B "
+                 f"{steps}, A at least {steps}, C at least "
+                 f"{-(-steps // k)})")
+    if kernels:
+        goldens_kernels(torch, runs)
+    print(f"[goldens] phase 18: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    if missed:
+        fail(f"goldens: missed their JAX bounds: {missed}")
+
+
+def c_tiny(torch, eng, state, params, k, what):
+    """Kernel C on the search inputs of the next refresh of a golden's
+    state, against the plain sweep: pair table and count at the engine's
+    cap_ss and at a cap below the pair count. Returns the pair count."""
+    from dem_engine_tpu_torch.ops import binning, sweep
+    from dem_engine_tpu_torch.solver import ss_search_inputs
+
+    q = ss_search_inputs(state, params.replace(max_drift=torch.tensor(
+        k, dtype=torch.int32, device=DEVICE)), eng.cfg.voxel_size)
+    S = state.spheres.n
+    tab = binning.build_sphere_table(q["pos_cd"], q["reach"], q["owner"],
+                                     q["family"], q["bin_size"], q["nb_cd"],
+                                     max(S, 1))
+    mpb = int(tab.max_occ)
+    cap = eng.cfg.cap_ss
+    args = (tab, S, q["family_mask"], q["nb_cd"])
+    pairs = int(binning.sweep_table(*args, cap, mpb)[2])
+    same = {}
+    for c in (cap, max(pairs - 1, 0)):
+        ka, kb, kn = sweep.sweep_table_cuda(*args, c)
+        qa, qb, qn = binning.sweep_table(*args, c, mpb)
+        same[c] = (int(kn) == int(qn) == pairs and torch.equal(ka, qa)
+                   and torch.equal(kb, qb))
+    ms = cuda_ms(torch, lambda: sweep.sweep_table_cuda(*args, cap))
+    pms = cuda_ms(torch, lambda: binning.sweep_table(*args, cap, mpb))
+    bnd = bound(*bytes_C(tab, cap, pairs))
+    print(f"[goldens] C on the {what} table ({S} spheres, {tab.n_rows} "
+          f"rows, cap_ss {cap}): {pairs} pairs, "
+          f"identical to the plain sweep (pair table and count) at cap "
+          f"{cap}: {same[cap]}, at cap {max(pairs - 1, 0)} (count past "
+          f"it): {same[max(pairs - 1, 0)]}; kernel {ms:.3f} ms plain "
+          f"{pms:.3f} ms bound {bnd[0]:.3g} ms ({bnd[1]})", flush=True)
+    if not all(same.values()) or pairs == 0:
+        fail(f"goldens: kernel C differs from the plain sweep on the "
+             f"{what} table, or found no pair")
+    return pairs
+
+
+def a_tiny(torch, what, t, rec_a, rec_b, n):
+    """Kernel A on a golden's table (hold_A: against the float64 sum and
+    its plain version), and exactly zero for every owner with no live
+    row in it."""
+    from dem_engine_tpu_torch.ops import segred
+
+    hold_A(torch, "goldens", what, t, rec_a, rec_b, n)
+    got = segred.seg_sum_pair(rec_a, t.own_a, rec_b, t.own_b_sorted,
+                              t.perm_b, n)
+    has = torch.zeros(n, dtype=torch.bool, device=DEVICE)
+    for ids in (t.own_a, t.own_b_sorted):
+        live = (ids >= 0) & (ids < n)
+        has[ids[live].long()] = True
+    stray = int((got[~has] != 0).sum())
+    print(f"[goldens] A on the {what} table: {int((~has).sum())} of {n} "
+          f"owners have no live row, {stray} nonzero entries among their "
+          f"sums (must be 0)", flush=True)
+    if stray:
+        fail(f"goldens: kernel A wrote to owners with no live row of the "
+             f"{what} table")
+
+
+def goldens_kernels(torch, runs):
+    """Kernels C, B and A at the goldens' shapes, their launches here not
+    counted: the two-sphere table (cap_ss 16) 100 steps after the contact
+    forms and with no contact; the settling bed's tables after its 12,000
+    steps (its golden's end state in `runs`, else run again); the mesh
+    bounce's ST rows in contact."""
+    from dem_engine_tpu_torch.ops import forces
+    from dem_engine_tpu_torch.ops.fused_force import hertz_rows_cuda
+    import torch_behaviour as tb
+
+    saved = read_counts()
+
+    def ss_rows(eng, state, params):
+        return hertz_rows_cuda(
+            state.ss, forces.pack_kinematics(state.owners, world_omg=True),
+            float(params.h), eng.cfg.voxel_size, eng.cfg.force_model)[:2]
+
+    def passed(eng, state, params, kind):
+        p = forces.contact_pass(
+            kind, getattr(state, kind), state.owners, state.spheres,
+            state.tris, state.anals, params, state.time, eng.cfg.voxel_size,
+            eng.cfg.force_model, krec=forces.pack_kinematics(state.owners))
+        return p["table"], p["rec_a"], p["rec_b"]
+
+    for v0, steps, what in ((1.0, 2600, "two-sphere (in contact)"),
+                            (0.0, 100, "two-sphere (no contact)")):
+        eng, state, params, _ = tb.two_sphere_setup(DEVICE, v0=v0, cor=0.8)
+        state = eng.advance(state, params, steps, update_freq=50)
+        if v0:
+            c_tiny(torch, eng, state, params, 50, what)
+            hold_B(torch, "goldens", what, state, eng.cfg, float(params.h))
+        a_tiny(torch, f"{what} SS", state.ss, *ss_rows(eng, state, params),
+               state.owners.n)
+
+    bed = runs.get("settling_bed") or tb.settling_bed(DEVICE)
+    eng, state, params = bed["final"]
+    c_tiny(torch, eng, state, params, 20, "settling bed's")
+    hold_B(torch, "goldens", "settling bed's", state, eng.cfg,
+           float(params.h))
+    a_tiny(torch, "settling bed's SS", state.ss,
+           *ss_rows(eng, state, params), state.owners.n)
+    a_tiny(torch, "settling bed's SA", *passed(eng, state, params, "sa"),
+           state.owners.n)
+
+    eng, state, params, _ = tb.mesh_bounce_setup(DEVICE, at_impact=True)
+    state = eng.advance(state, params, 300, update_freq=30)
+    st, ra, rb = passed(eng, state, params, "st")
+    if int(st.count) == 0 or not bool((ra != 0).any()):
+        fail("goldens: the mesh bounce's ST table has no contact force")
+    a_tiny(torch, "mesh bounce's ST", st, ra, rb, state.owners.n)
+    set_counts(saved)
+
+
 FLAGSHIP_N = 524288  # the tool's default --n
 FLAGSHIP_H = 5e-6
 SET_DOWN_V = 0.05  # m/s: the wheel's approach to the clump it meets
 SET_DOWN_CHUNKS = 4
 
 
-def b_against_plain(torch, s):
-    """Kernel B (with A's sums, as a step runs them) on solver `s`'s SS
-    table against its plain version, and both against B's plain rows
-    evaluated and summed in float64 (the overlap is a difference of two
-    numbers ~1e3 times larger, so every f32 evaluation sits some 1e-4 of
-    the largest owner wrench from the exact one, and B's FMAs round apart
-    from torch's). Returns ({"kernel/plain", "f64/kernel", "f64/plain"}
+def b_against_plain(torch, state, cfg, h):
+    """Kernel B (with A's sums, as a step runs them) on `state`'s SS
+    table (config `cfg`, step `h`) against its plain version, and both
+    against B's plain rows evaluated and summed in float64 (the overlap
+    is a difference of two numbers ~1e3 times larger, so every f32
+    evaluation sits some 1e-4 of the largest owner wrench from the exact
+    one, and B's FMAs round apart from torch's). Returns ({"kernel/plain", "f64/kernel", "f64/plain"}
     owner force and torque errors, relative to the largest; the friction
     history error against the plain version; kernel ms, plain ms, B's
     bound)."""
@@ -3132,8 +3327,7 @@ def b_against_plain(torch, s):
                                                       fused_step_ss_plain,
                                                       hertz_rows)
 
-    st, cfg, h = s.state, s.engine.cfg, float(s.params.h)
-    ss, owners, model = st.ss, st.owners, cfg.force_model
+    ss, owners, model = state.ss, state.owners, cfg.force_model
     krec_w = forces.pack_kinematics(owners, world_omg=True)
     fk, tk, tab_k = fused_step_ss(ss, owners, h, cfg.voxel_size, model,
                                   krec_w)
@@ -3166,6 +3360,26 @@ def b_against_plain(torch, s):
     return errs, e_wc, ms, pms, bound(*bytes_B(ss, owners.n))
 
 
+def hold_B(torch, tag, what, state, cfg, h):
+    """``b_against_plain`` on `state`'s SS table, printed after `tag`:
+    kernel B's owner sums no farther from the float64 ones than twice the
+    plain version's, and the friction history within 1e-3 of it."""
+    errs, e_wc, ms, pms, bnd = b_against_plain(torch, state, cfg, h)
+    print(f"[{tag}] B on the {what} SS table (rows {state.ss.cap}, live "
+          f"{int(state.ss.count)}), with A's sums, owner [force, torque] "
+          f"errors of the largest: "
+          + ", ".join(f"{k} {v[0]:.2e} {v[1]:.2e}" for k, v in errs.items())
+          + f" (kernel B's from the float64 sums at most twice the plain "
+          f"version's); friction history err {e_wc:.2e} (tol 1e-3); "
+          f"kernels {ms:.3f} ms by events, plain {pms:.3f} ms, B's bound "
+          f"{bnd[0]:.3g} ms ({bnd[1]})", flush=True)
+    if not (all(k <= 2 * p for k, p in zip(errs["f64/kernel"],
+                                           errs["f64/plain"]))
+            and e_wc <= 1e-3):
+        fail(f"{tag}: kernel B disagrees with its plain version on the "
+             f"{what} SS table")
+
+
 def flagship_settled(torch, s):
     """The settled terrain's kernels at its own shapes, before its clump
     file is written: C on both member tables of its two-class CD against
@@ -3178,20 +3392,8 @@ def flagship_settled(torch, s):
     c_on_members(torch, tabs, s.params.family_mask, s.engine.cfg.cap_ss,
                  "[flagship] C on the settled terrain's")
     del tabs
-    errs, e_wc, ms, pms, bnd = b_against_plain(torch, s)
-    print(f"[flagship] B on the settled SS table (rows {s.state.ss.cap}, "
-          f"live {int(s.state.ss.count)}), with A's sums, owner [force, "
-          f"torque] errors of the largest: "
-          + ", ".join(f"{k} {v[0]:.2e} {v[1]:.2e}" for k, v in errs.items())
-          + f" (kernel B's from the float64 sums at most twice the plain "
-          f"version's); friction history err {e_wc:.2e} (tol 1e-3); "
-          f"kernels {ms:.3f} ms by events, plain {pms:.3f} ms, B's bound "
-          f"{bnd[0]:.4f} ms ({bnd[1]})", flush=True)
-    if not (all(k <= 2 * p for k, p in zip(errs["f64/kernel"],
-                                           errs["f64/plain"]))
-            and e_wc <= 1e-3):
-        fail("flagship: kernel B disagrees with its plain version on the "
-             "settled SS table")
+    hold_B(torch, "flagship", "settled", s.state, s.engine.cfg,
+           float(s.params.h))
     set_counts(saved)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3620,7 +3822,9 @@ KERNELS = {
 }
 PHASES = ("kernels", "parity", "main", "poly", "breakdown", "api",
           "families", "uniq", "output", "custom", "bonded", "rest", "demos",
-          "flagship", "mesh")
+          "goldens", "flagship", "mesh")
+# phases a caller may ask for that the default run leaves out
+EXTRA_PHASES = ("goldens-long",)
 
 
 def main():
@@ -3637,11 +3841,13 @@ def main():
                     help="drive steps of the flagship (the tool's 0.3 s: "
                          "60000)")
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of " + ",".join(PHASES))
+                    help="comma-separated subset of "
+                    + ",".join(PHASES + EXTRA_PHASES))
     args = ap.parse_args()
     phases = args.phases.split(",")
-    if not set(phases) <= set(PHASES):
-        fail(f"unknown phases {sorted(set(phases) - set(PHASES))}")
+    if not set(phases) <= set(PHASES + EXTRA_PHASES):
+        fail(f"unknown phases "
+             f"{sorted(set(phases) - set(PHASES + EXTRA_PHASES))}")
 
     import torch
 
@@ -3691,6 +3897,13 @@ def main():
             demos = phase_demos(torch, d)
         print(f"[demos] phase 15 (timed part): "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if "goldens" in phases or "goldens-long" in phases:
+        import torch_behaviour as tb
+
+        names = {g.name for g in tb.GOLDENS if (
+            g.name in GOLDENS_DEFAULT if "goldens-long" not in phases
+            else "goldens" in phases or g.name not in GOLDENS_DEFAULT)}
+        phase_goldens(torch, names, kernels="goldens" in phases)
     if "flagship" in phases:
         import tempfile
 

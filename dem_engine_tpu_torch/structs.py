@@ -360,3 +360,49 @@ class DEMMeshConnected:
         load_normals); facet normals are recomputed from winding
         otherwise."""
         self.use_mesh_normals = bool(use)
+
+    def Clear(self):
+        """Drop the mesh's geometry (reference BdrsAndObjs.h:357)."""
+        self.vertices = np.zeros((0, 3))
+        self.faces = np.zeros((0, 3), np.int64)
+        self.face_materials = None
+
+    def ComputeMassProperties(self, density: float = 1.0):
+        """(mass, com (3,), inertia tensor (3, 3) about the com) of the
+        closed mesh at `density`, by signed-tetrahedron integrals about
+        the origin (reference BdrsAndObjs.h:394)."""
+        v = np.asarray(self.vertices, np.float64)
+        tri = v[np.asarray(self.faces)]
+        a, b, c = tri[:, 0], tri[:, 1], tri[:, 2]
+        d6 = np.einsum("ij,ij->i", a, np.cross(b, c))  # 6 * signed volume
+        vol = d6.sum() / 6.0
+        if abs(vol) < 1e-30:
+            return 0.0, np.zeros(3), np.zeros((3, 3))
+        com = (d6[:, None] * (a + b + c)).sum(0) / (24.0 * vol)
+        s = a + b + c
+        # the integral of x x^T over tet(0, a, b, c) is
+        # V/20 (a a^T + b b^T + c c^T + s s^T)
+        S = np.einsum("i,ijk->jk", d6 / 120.0,
+                      np.einsum("ij,ik->ijk", a, a)
+                      + np.einsum("ij,ik->ijk", b, b)
+                      + np.einsum("ij,ik->ijk", c, c)
+                      + np.einsum("ij,ik->ijk", s, s))
+        m = density * vol
+        inertia_o = density * (np.trace(S) * np.eye(3) - S)
+        # parallel-axis shift to the com
+        return m, com, inertia_o - m * ((com @ com) * np.eye(3)
+                                        - np.outer(com, com))
+
+    @staticmethod
+    def WriteWavefront(filename, meshes):
+        """Write meshes into one OBJ file (reference BdrsAndObjs.h:335)."""
+        from .utils import io as _io
+
+        verts, faces, off = [], [], 0
+        for m in meshes:
+            v = np.asarray(m.vertices, np.float64)
+            verts.append(v)
+            faces.append(np.asarray(m.faces) + off)
+            off += v.shape[0]
+        _io.write_mesh_obj(filename, np.concatenate(verts),
+                           np.concatenate(faces))

@@ -101,15 +101,21 @@ def ranks(tmp_path_factory):
     r.stop()
 
 
+@functools.lru_cache(maxsize=None)
+def _no_mesh32():
+    """The Engine without a mesh on the 32-sphere case, 40 steps
+    (spatial_refresh is read only by a refresh on a mesh)."""
+    cfg, state, params = setup32()
+    return Engine(cfg).advance(state, params, 40, update_freq=20)
+
+
 @pytest.mark.parametrize("spatial", [False, True])
 def test_world_size_one_in_process(spatial):
     """make_mesh(1) makes its own one-rank group; the mesh Engine then
     gives the Engine without a mesh on the 32-sphere case."""
+    ref = _no_mesh32()
     mesh = make_mesh(1, device="cpu")
     try:
-        cfg, state, params = setup32()
-        cfg = dataclasses.replace(cfg, spatial_refresh=spatial)
-        ref = Engine(cfg).advance(state, params, 40, update_freq=20)
         cfg, state, params = setup32()
         cfg = dataclasses.replace(cfg, spatial_refresh=spatial)
         local = Engine(cfg, mesh=mesh).advance(shard_state(state, mesh),
