@@ -195,14 +195,20 @@ Phases, each printing its own numbers; any failure exits nonzero:
                C's global sweep and to the plain sweep's, and on the
                rows the rank received (padding rows left out as
                non-members) kernel C held row for row to the plain
-               sweep, whose kept pairs are that set too; 4 chunks
-               against Engine(cfg) with no
-               mesh at the parity tolerances; 250 timed steps and five
+               sweep, whose kept pairs are that set too; the SA pair
+               set identical to the refresh without the mesh; the row
+               exchange, its answer and the record fetch over NCCL
+               (which one rank's refresh never calls); each rank's rows
+               and home rows, and the home split on 2, 4 and 8 ranks;
+               one step's wrench and 4 chunks against Engine(cfg) with
+               no mesh, bit for bit or else at the parity tolerances
+               with the wrench within 1e-6; 250 timed steps and five
                refreshes with and without the mesh (ms/step, refresh ms,
-               peak memory, A twice and B once a step, C once a refresh
-               attempt), physics. Profiled at the end: launches and
-               device time a step with and without the mesh, NCCL's
-               share
+               one refresh's peak memory beyond the state, A twice and B
+               once a step, C once a refresh attempt), physics. Profiled
+               at the end: a refresh's device time and launches, and
+               launches and device time a step with and without the
+               mesh, NCCL's share
   18 goldens   the JAX package's engine goldens (tests/torch_behaviour.py,
                the bodies of tests/test_torch_goldens.py) through
                Engine.advance at their own sizes and lengths: the five of
@@ -278,15 +284,16 @@ def cuda_ms(torch, fn, reps=10, warm=2):
 
 
 def device_rows(torch, fn, per=1):
-    """What ran on the device during fn() (torch.profiler): a list of
-    (ms, launches, name) per kernel or memset, each divided by `per`,
-    largest first; empty where the profiler recorded no device time."""
+    """What ran on the device during fn() (torch.profiler, the device's
+    activity alone: the host ops' records would take key_averages most
+    of a profile's time, for rows it drops): a list of (ms, launches,
+    name) per kernel or memset, each divided by `per`, largest first;
+    empty where the profiler recorded no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()  # nothing earlier runs into the profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     rows = []  # kernels only: an aten op's row repeats its kernels' time
@@ -3596,13 +3603,19 @@ def phase_mesh(torch, n_clumps, k, warm, steps, card):
     has one card). The mono bed with the spatial refresh on, through
     Engine(cfg, mesh): buckets at a quarter of their auto size, so the
     first refresh takes the OVF_SPATIAL_BUCKET growth; on the settled
-    state the spatial pair set identical to kernel C's global sweep and
-    to the plain sweep's, and kernel C on the received rows identical
-    to the plain sweep there (``mesh_pairs``); 4 chunks from that state
-    against Engine(cfg) with no mesh at the
-    parity phase's tolerances (Crr = 0); then the timed chunks, refreshes
-    and launch counts of both. Returns what the profile at the end
-    needs."""
+    state the spatial SS pair set identical to kernel C's global sweep
+    and to the plain sweep's, the SA pair set identical to the refresh
+    without the mesh, and kernel C on the received rows identical to the
+    plain sweep there (``mesh_pairs``); the row exchange, its answer and
+    the record fetch over NCCL (``mesh_collectives``); each rank's rows
+    and home rows, and the home split the table would take on 2, 4 and 8
+    ranks (``mesh_homes``); one step's owner wrench from the same state
+    with and without the mesh (``mesh_wrench``); 4 chunks from that
+    state against Engine(cfg) with no mesh, bit for bit or else at the
+    parity phase's tolerances with the wrench within 1e-6 (Crr = 0);
+    then the timed chunks, a refresh's ms and peak memory beyond the
+    state, and launch counts of both. Returns what the profile at the
+    end needs."""
     from dem_engine_tpu_torch import Engine, build_case
     from dem_engine_tpu_torch.ops.voxel import decode_host
     from dem_engine_tpu_torch.parallel import (gather_state, make_mesh,
@@ -3650,23 +3663,32 @@ def phase_mesh(torch, n_clumps, k, warm, steps, card):
         fail("the spatial bucket growth did not run as the JAX engine's")
 
     mesh_pairs(torch, mesh, eng, eng0, state, local, params_k, card)
+    mesh_collectives(torch, mesh, local, state.spheres, card)
+    mesh_homes(torch, local, n_sph, eng.cfg, card)
+    e_w = mesh_wrench(torch, mesh, eng, eng0, state, params_k, n_clumps,
+                      card)
 
     # 4 chunks from the settled state, with and without the mesh
     def owners(st):
         o = st.owners
         return (o.vel.cpu().numpy(), o.omg.cpu().numpy(),
                 decode_host(o.vox.cpu().numpy(), o.loc.cpu().numpy(),
-                            cfg.voxel_size))
+                            cfg.voxel_size), o.vox.cpu().numpy(),
+                o.loc.cpu().numpy())
 
     ref = owners(Engine(eng0.cfg).advance(state, params, 4 * k, k))
     out = owners(gather_state(Engine(eng.cfg, mesh=mesh).advance(
         shard_state(state, mesh), params, 4 * k, k), mesh))
     e_v, e_o = rel_err(ref[0], out[0]), rel_err(ref[1], out[1])
     e_p = float(np.abs(ref[2] - out[2]).max() / cfg.voxel_size)
+    bits = all(np.array_equal(a, b) for a, b in zip(ref, out))
     print(f"[mesh] 4 chunks of K={k} from the settled state, mesh against "
-          f"no mesh (Crr=0): vel err {e_v:.2e} omg err {e_o:.2e} position "
-          f"err {e_p:.2e} voxel (tol 2e-4, 2e-4, 1e-3)", flush=True)
-    if not (e_v <= 2e-4 and e_o <= 2e-4 and e_p <= 1e-3):
+          f"no mesh (Crr=0): bit for bit {bits}; vel err {e_v:.2e} omg err "
+          f"{e_o:.2e} position err {e_p:.2e} voxel (tol 2e-4, 2e-4, 1e-3; "
+          f"where not bit for bit, one step's wrench within 1e-6: "
+          f"{e_w:.2e})", flush=True)
+    if not (bits or (e_w <= 1e-6 and e_v <= 2e-4 and e_o <= 2e-4
+                     and e_p <= 1e-3)):
         fail("the mesh Engine disagrees with the Engine without a mesh")
 
     # timed: chunks and refreshes, without the mesh and with it
@@ -3683,6 +3705,13 @@ def phase_mesh(torch, n_clumps, k, warm, steps, card):
         dt = time.perf_counter() - t0
         counts, refreshes = read_counts(), e.refresh_attempts - a0
         mem = torch.cuda.max_memory_allocated()
+        # one refresh's peak beyond what is allocated before it (the
+        # state and the retained tables)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        e.refresh(st, params_k)
+        torch.cuda.synchronize()
+        one = torch.cuda.max_memory_allocated() - held
         ref_ms = []
         for _ in range(5):
             torch.cuda.synchronize()
@@ -3693,9 +3722,16 @@ def phase_mesh(torch, n_clumps, k, warm, steps, card):
         runs[tag] = (e, st, counts)
         print(f"[mesh] {tag}: {n_clumps} clumps, K={k}, {steps} steps: "
               f"{dt * 1e3 / steps:.3f} ms/step, a refresh "
-              f"{float(np.median(ref_ms)):.3f} ms (median of 5); peak "
-              f"memory {mem / 2**30:.2f} GiB; launches {counts} "
+              f"{float(np.median(ref_ms)):.3f} ms (median of 5; "
+              f"{', '.join(f'{x:.3f}' for x in ref_ms)}); one refresh's "
+              f"peak {one / 2**30:.3f} GiB beyond the {held / 2**30:.3f} "
+              f"GiB held; run peak {mem / 2**30:.2f} GiB; launches {counts} "
               f"({refreshes} refresh attempts); {card}", flush=True)
+        for kind in ("ss", "sa"):
+            t = getattr(st, kind)
+            print(f"[mesh] {tag}: rank {getattr(m, 'rank', 0)} {kind} table "
+                  f"{t.cap} rows, {int(t.count)} home rows (cap "
+                  f"{getattr(e.cfg, 'cap_' + kind)})", flush=True)
         expect = {"A": 2 * steps, "B": steps, "B-extras": 0, "B-ub": 0,
                   "C": refreshes, "D": 0, "lists": 0}
         if counts != expect or refreshes < steps // k:
@@ -3703,6 +3739,86 @@ def phase_mesh(torch, n_clumps, k, warm, steps, card):
     physics(torch, gather_state(runs["mesh"][1], mesh), cfg.voxel_size,
             "mesh")
     return mesh, runs, params_k
+
+
+def mesh_collectives(torch, mesh, local, spheres, card):
+    """The row exchange of a mesh refresh at world size 1 (NCCL): the
+    SS table's rows sent to rank 0 with the dead ones dropped must come
+    back as the live rows in order, the answer must put them back in
+    place (zeros on the dead), and a fetch of the B-side sphere records
+    through the exchange must equal reading them in place. One rank's
+    refresh needs none of it (every row is home, every record whole);
+    this holds the collectives a mesh of several cards runs."""
+    from dem_engine_tpu_torch.parallel import mesh as pmesh
+
+    t = local.ss
+    live = t.idA >= 0
+    x = torch.stack([t.idA, t.idB], 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows, plan = mesh.exchange(x, torch.where(live, 0, mesh.size))
+    back = mesh.answer(rows, plan)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = pmesh.fetch_record(spheres, t.idB, mesh)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ids = t.idB[live].long()
+    same = {"exchange": torch.equal(rows, x[live]),
+            "answer": torch.equal(back, torch.where(live[:, None], x, 0)),
+            "fetch": all(torch.equal(getattr(got, f)[live],
+                                     getattr(spheres, f)[ids])
+                         for f in ("owner", "relpos", "radius", "mat"))}
+    print(f"[mesh] {mesh.backend} exchange of {x.shape[0]} rows "
+          f"({rows.shape[0]} live) and its answer {(t1 - t0) * 1e3:.3f} "
+          f"ms, the fetch of their B spheres {(t2 - t1) * 1e3:.3f} ms: "
+          f"{same}; {card}", flush=True)
+    if not all(same.values()):
+        fail(f"the mesh's row exchange over NCCL is wrong: {same}")
+
+
+def mesh_homes(torch, local, n_sph, cfg, card):
+    """Each row's home rank is the index shard of its A-side sphere: the
+    rows of the bed's SS and SA tables each rank would hold on 2, 4 and
+    8 ranks, against cap / D."""
+    from dem_engine_tpu_torch.parallel.mesh import home_of
+
+    for kind in ("ss", "sa"):
+        t = getattr(local, kind)
+        ids = t.idA[t.idA >= 0]
+        cap = getattr(cfg, "cap_" + kind)
+        for d in (2, 4, 8):
+            per = torch.bincount(home_of(ids, n_sph, d), minlength=d)
+            print(f"[mesh] {kind} home rows on {d} ranks: "
+                  f"{per.tolist()}, the fullest {int(per.max())} = "
+                  f"{float(per.max()) / max(float(per.float().mean()), 1):.3f}"
+                  f"x the mean, {float(per.max()) * d / cap:.3f} of cap / D "
+                  f"({cap // d}); {card}", flush=True)
+
+
+def mesh_wrench(torch, mesh, eng, eng0, state, params_k, n_clumps, card):
+    """One step from the same settled state after a refresh with the mesh
+    and one without: the clumps' contact accelerations (their wrench over
+    one mass) bit for bit, or how far apart relative to the largest (the
+    two tables hold the same pairs, and rows that tie on (own_a, own_b)
+    may sum in another order). Returns that distance."""
+    from dem_engine_tpu_torch.parallel import gather_state, shard_state
+    from dem_engine_tpu_torch.solver import run_steps
+
+    ref = run_steps(eng0.refresh(state, params_k), params_k, eng0.cfg, 1)
+    got = gather_state(run_steps(
+        eng.refresh(shard_state(state, mesh), params_k), params_k, eng.cfg,
+        1, mesh=mesh), mesh)
+    errs, bits = [], True
+    for f in ("lin_acc", "ang_acc"):
+        a = getattr(ref.owners, f)[:n_clumps]
+        b = getattr(got.owners, f)[:n_clumps]
+        bits &= torch.equal(a, b)
+        errs.append(float((a - b).abs().max() / a.abs().max()))
+    print(f"[mesh] one step's clump wrench, mesh against no mesh: bit for "
+          f"bit {bits}; force {errs[0]:.2e}, torque {errs[1]:.2e} of the "
+          f"largest (tol 1e-6); {card}", flush=True)
+    return 0.0 if bits else max(errs)
 
 
 def mesh_pairs(torch, mesh, eng, eng0, state, local, params_k, card):
@@ -3724,6 +3840,13 @@ def mesh_pairs(torch, mesh, eng, eng0, state, local, params_k, card):
     got = gather_state(local, mesh)
     sets = {"spatial": ss_keys(torch, got.ss, n_sph),
             "C global": ss_keys(torch, whole.ss, n_sph)}
+    n_a = state.anals.n
+    sa_same = torch.equal(ss_keys(torch, got.sa, n_a),
+                          ss_keys(torch, whole.sa, n_a))
+    print(f"[mesh] SA pair set with the mesh {int(got.sa.count)}, without "
+          f"{int(whole.sa.count)}: identical {sa_same}", flush=True)
+    if not (sa_same and int(got.sa.count) > 0):
+        fail("the mesh's SA pairs differ from the refresh without a mesh")
     q = ss_search_inputs(state, params_k, cfg.voxel_size)
     tab = binning.build_sphere_table(q["pos_cd"], q["reach"], q["owner"],
                                      q["family"], q["bin_size"], q["nb_cd"],
@@ -3780,9 +3903,20 @@ def mesh_pairs(torch, mesh, eng, eng0, state, local, params_k, card):
 
 def mesh_device(torch, mesh, runs, params_k, card, n=5):
     """The profile of phase 17: launches and device time a step with the
-    mesh and without it (the collectives add launches)."""
+    mesh and without it (the collectives add launches), then those of
+    one refresh by operation."""
     from dem_engine_tpu_torch.solver import run_steps
 
+    for tag, (e, st, _) in runs.items():
+        rows = device_rows(torch, lambda: e.refresh(st, params_k))
+        if rows:
+            print(f"[mesh device] {tag}: one refresh, device busy "
+                  f"{sum(r[0] for r in rows):.3f} ms in "
+                  f"{sum(r[1] for r in rows):g} launches; {card}",
+                  flush=True)
+            for ms, cnt, name in rows[:10]:
+                print(f"[mesh device]   {ms:.3f} ms/refresh  x{cnt:g}  "
+                      f"{name[:70]}", flush=True)
     for tag, (e, st, _) in runs.items():
         m = mesh if tag == "mesh" else None
         rows = device_rows(torch, lambda: run_steps(st, params_k, e.cfg, n,

@@ -7,21 +7,30 @@ tensors, gloo on CPU tensors.
 
 Layout (the JAX rule, ``state_shardings``): spheres, triangles and (with
 `shard_owners`) owners are split on their leading axis when it divides
-by the world size D; every contact table is split on its contact axis (a
-row tensor on axis 0, a field-major record on axis 1); analyticals, the
+by the world size D; a contact table is split on its contact axis (a
+row tensor on axis 0, a field-major record on axis 1) when its capacity
+divides and each rank's home rows fit its cap / D; analyticals, the
 time, step, overflow word, max velocity and lost-contact count are
 replicated, and so is anything that does not divide. A table's count,
 its B-side permutation and its unique-fetch lists describe the rows a
 rank holds, so each rank rebuilds them from its own rows ("per-shard").
 
 What the solver does on a mesh (``solver.refresh_contacts`` and
-``solver.dynamics_step`` with `mesh`): a refresh gathers the geometry
-and the old tables' keys, searches (the spatial search of
-``parallel.spatial`` or the global one), carries the history once over
-the whole pair list and finalizes this rank's rows; a step all-gathers
-the owner records, runs kernels B and A on the local rows, and
-reduce-scatters (or, with owners replicated, all-reduces) the (N, 6)
-wrench before the local owners are integrated.
+``solver.dynamics_step`` with `mesh`): every contact row has a home rank,
+the index shard of its A-side sphere (``home_of``), the same from one
+refresh to the next, so a re-detected pair finds its old row on its own
+rank. A refresh gathers the owner records (and, with triangles, every
+sphere's search record for the ST sweep), searches its own share, sends
+each new row home (``Mesh.exchange``), carries history against the
+rank's own old rows and finalizes them, fetching the B-side records it
+lacks by id (``fetch_record``); a step all-gathers the owner records,
+runs kernels B and A on the local rows, and reduce-scatters (or, with
+owners replicated, all-reduces) the (N, 6) wrench before the local
+owners are integrated. A split table holds its home rows, cap / D rows
+a rank (``shard_table``).
+
+``Mesh.record``, when a list, gets one (kind, rows, bytes) entry for
+what each collective returned.
 """
 
 from __future__ import annotations
@@ -59,6 +68,49 @@ _ROWS = ("idA", "idB", "persist", "force", "torque", "cpoint", "own_a",
 _ROW_DICTS = ("wildcards", "premix")
 _COLS = ("statics", "fstat_a")
 
+
+def home_of(ids, n: int, d: int):
+    """The home rank of global ids in [0, n) split over `d` ranks: the
+    index shard that holds the id (``home_range``). A contact row's home
+    is that of its A-side sphere."""
+    return torch.div(ids.long() * d, max(n, 1), rounding_mode="floor")
+
+
+def home_range(n: int, d: int, r: int):
+    """(lo, hi): the ids in [0, n) whose home is rank `r`; r n / D to
+    (r + 1) n / D where D divides n."""
+    return -(-r * n // d), -(-(r + 1) * n // d)
+
+
+def _pack(tensors):
+    """Tensors of one leading length and 4-byte dtypes as one (n, W) f32
+    tensor, and the spec ``_unpack`` takes them apart by."""
+    n = tensors[0].shape[0]
+    words, spec = [], []
+    for t in tensors:
+        if t.element_size() != 4 or t.shape[0] != n:
+            raise ValueError(f"cannot pack a {t.dtype} tensor of shape "
+                             f"{tuple(t.shape)} with {n} rows")
+        w = t.contiguous().reshape(n, t[0].numel() if n else 0)
+        words.append(w if w.dtype == F else w.view(F))
+        spec.append((t.dtype, tuple(t.shape[1:]), w.shape[1]))
+    return torch.cat(words, dim=1), spec
+
+
+def _unpack(words, spec):
+    """The tensors ``_pack`` packed, as views of `words` (no copy: the
+    solver's torch ops take strided tensors, and no kernel is handed a
+    gathered record's pointer)."""
+    out, c = [], 0
+    for dtype, shape, w in spec:
+        part = words[:, c:c + w]
+        c += w
+        if dtype != F:
+            part = part.view(dtype)
+        out.append(part.reshape((words.shape[0],) + shape))
+    return out
+
+
 class Layout(NamedTuple):
     """What a rank's shard holds (``SimState.layout``): the global counts
     of owners, spheres and triangles, whether each of those records is
@@ -89,10 +141,24 @@ class Mesh:
     shard_owners: bool = True
     #: whether make_mesh initialised the process group (``close`` ends it)
     owns_group: bool = False
+    #: a list that gets (kind, rows, bytes) of what each collective
+    #: returned (``_note``), or None: nothing recorded
+    record: Optional[list] = None
 
     @property
     def backend(self) -> str:
         return dist.get_backend(self.group)
+
+    def _note(self, kind: str, out):
+        """Record what a collective returned: its kind, its rows (the
+        product of every axis but the last; a vector's length) and
+        bytes."""
+        if self.record is not None:
+            rows = (out.numel() // max(out.shape[-1], 1) if out.dim() > 1
+                    else out.numel())
+            self.record.append((kind, rows,
+                                out.numel() * out.element_size()))
+        return out
 
     # -- collectives: every rank calls each one in the same order --------
 
@@ -102,30 +168,15 @@ class Mesh:
         x = x.contiguous()
         out = x.new_empty((self.size * x.shape[0],) + tuple(x.shape[1:]))
         _gather_rows(out, x, group=self.group)
-        return out
+        return self._note("all_gather", out)
 
     def gather_fields(self, tensors):
         """``gather_rows`` of several tensors with one leading length and
         4-byte dtypes, packed into one collective."""
         if not tensors:
             return []
-        n = tensors[0].shape[0]
-        words = []
-        for t in tensors:
-            if t.element_size() != 4 or t.shape[0] != n:
-                raise ValueError(f"cannot pack a {t.dtype} tensor of shape "
-                                 f"{tuple(t.shape)} with {n} rows")
-            w = t.contiguous().reshape(n, t[0].numel() if n else 0)
-            words.append(w if w.dtype == F else w.view(F))
-        g = self.gather_rows(torch.cat(words, dim=1))
-        out, c = [], 0
-        for t, w in zip(tensors, words):
-            part = g[:, c:c + w.shape[1]].contiguous()
-            c += w.shape[1]
-            if t.dtype != F:
-                part = part.view(t.dtype)
-            out.append(part.reshape((g.shape[0],) + tuple(t.shape[1:])))
-        return out
+        words, spec = _pack(tensors)
+        return _unpack(self.gather_rows(words), spec)
 
     def reduce_rows(self, x):
         """(D n, ...) partial sums on each rank -> this rank's (n, ...)
@@ -133,17 +184,17 @@ class Mesh:
         x = x.contiguous()
         out = x.new_empty((x.shape[0] // self.size,) + tuple(x.shape[1:]))
         _reduce_rows(out, x, group=self.group)
-        return out
+        return self._note("reduce_scatter", out)
 
     def all_sum(self, x):
         y = x.clone()
         dist.all_reduce(y, op=dist.ReduceOp.SUM, group=self.group)
-        return y
+        return self._note("all_reduce", y)
 
     def all_max(self, x):
         y = x.clone()
         dist.all_reduce(y, op=dist.ReduceOp.MAX, group=self.group)
-        return y
+        return self._note("all_reduce", y)
 
     def all_to_all(self, x):
         """(D, ...) on each rank: block t goes to rank t; returns the
@@ -151,12 +202,56 @@ class Mesh:
         x = x.contiguous()
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x, group=self.group)
+        return self._note("all_to_all", out)
+
+    def exchange(self, x, dest):
+        """The rows of `x` (m, ...) sent to the ranks `dest` (m,) names (a
+        dest of D or more drops the row), in one all_to_all_single whose
+        split sizes go first (a D-int ``all_to_all`` and one read of both
+        on the host). Returns (the rows received: block s from rank s,
+        each in its order in `x`; the plan ``answer`` replies by)."""
+        d = self.size
+        key = torch.clamp(dest.long(), max=d)
+        order = torch.sort(key, stable=True).indices
+        sizes = torch.zeros(d + 1, dtype=torch.int64, device=x.device)
+        sizes = sizes.scatter_add_(0, key, torch.ones_like(key))[:d]
+        send, recv = torch.stack(
+            [sizes, self.all_to_all(sizes[:, None])[:, 0]]).tolist()
+        order = order[:sum(send)]
+        out = x.new_empty((sum(recv),) + tuple(x.shape[1:]))
+        dist.all_to_all_single(out, x[order].contiguous(), recv, send,
+                               group=self.group)
+        return self._note("all_to_all_v", out), (order, send, recv,
+                                                 x.shape[0])
+
+    def answer(self, y, plan):
+        """Replies `y`, a row for each row ``exchange`` received (in that
+        order), sent back to their senders. Returns (m, ...) rows in the
+        order of the exchanged `x`, zero where its row was dropped."""
+        order, send, recv, m = plan
+        back = y.new_empty((sum(send),) + tuple(y.shape[1:]))
+        dist.all_to_all_single(back, y.contiguous(), send, recv,
+                               group=self.group)
+        self._note("all_to_all_v", back)
+        out = y.new_zeros((m,) + tuple(y.shape[1:]))
+        out[order] = back
         return out
+
+    def fetch(self, words, ids, n: int):
+        """Rows of an (n, W) table split over the ranks by ``home_of`` (this
+        rank holds `words`, its ``home_range``) at the global `ids`: each
+        id asked of its holder and its row sent back. Zero where an id is
+        negative."""
+        d = self.size
+        dest = torch.where(ids >= 0, home_of(ids, n, d), d)
+        asked, plan = self.exchange(ids[:, None], dest)
+        lo = home_range(n, d, self.rank)[0]
+        return self.answer(words[asked[:, 0].long() - lo], plan)
 
     def broadcast(self, x, src: int = 0):
         y = x.clone()
         dist.broadcast(y, src=src, group=self.group)
-        return y
+        return self._note("broadcast", y)
 
     def close(self):
         """End the process group if make_mesh made it."""
@@ -230,7 +325,15 @@ def _plan(state: SimState, mesh: Mesh, shard_owners=None) -> Layout:
         spheres=_splits(state.spheres.n, d),
         tris=_splits(state.tris.n, d),
         tables=tuple(k for k in _TABLES
-                     if _splits(getattr(state, k).cap, d)))
+                     if _splits(getattr(state, k).cap, d)
+                     and _homes_fit(getattr(state, k), state.spheres.n, d)))
+
+
+def _homes_fit(table: ContactTable, n_spheres: int, d: int) -> bool:
+    """Whether each rank's home rows of a whole table fit its cap / D."""
+    live = table.idA >= 0
+    homes = home_of(table.idA[live], n_spheres, d)
+    return bool((torch.bincount(homes, minlength=d) <= table.cap // d).all())
 
 
 def state_shardings(state: SimState, mesh: Mesh, shard_owners=None) -> dict:
@@ -310,15 +413,22 @@ def relayout(table: ContactTable, n_owners: int) -> ContactTable:
     return out
 
 
-def shard_table(table: ContactTable, mesh: Mesh,
-                n_owners: int) -> ContactTable:
-    """This rank's contiguous block of the rows of a whole table in
-    (own_a, own_b) order, as a table of its own."""
+def shard_table(table: ContactTable, mesh: Mesh, n_owners: int,
+                n_spheres: int) -> ContactTable:
+    """This rank's rows of a whole table: its home rows (``home_of`` their
+    A-side sphere) in the table's order, then dead rows up to cap / D.
+    Raises where they do not fit."""
     c = table.cap // mesh.size
-    lo, hi = mesh.rank * c, (mesh.rank + 1) * c
+    live = table.idA >= 0
+    mine = live & (home_of(table.idA, n_spheres, mesh.size) == mesh.rank)
+    rows = torch.cat([torch.nonzero(mine)[:, 0], torch.nonzero(~live)[:, 0]])
+    if int(mine.sum()) > c:
+        raise ValueError(f"{int(mine.sum())} home rows on rank {mesh.rank} "
+                         f"do not fit {c}")
+    rows = rows[:c]
 
     def take(x, axis):
-        return (x[lo:hi] if axis == 0 else x[:, lo:hi]).contiguous()
+        return x[rows] if axis == 0 else x[:, rows].contiguous()
 
     return relayout(_map_rows(table, take), n_owners)
 
@@ -350,6 +460,17 @@ def _split_record(rec, mesh: Mesh):
     return map_tensors(rec, lambda p, x: x[lo:lo + n].contiguous())
 
 
+def fetch_record(rec, ids, mesh: Mesh):
+    """The rows at the global `ids` of a spheres or triangles record split
+    over the ranks (this rank holds `rec`, its block), asked of their
+    holders (``Mesh.fetch``): every field but the wildcards, which a
+    refresh's finalize does not read. A negative id gets zeros."""
+    names = [f.name for f in dataclasses.fields(rec) if f.name != "wildcards"]
+    words, spec = _pack([getattr(rec, k) for k in names])
+    got = _unpack(mesh.fetch(words, ids, words.shape[0] * mesh.size), spec)
+    return rec.replace(wildcards={}, **dict(zip(names, got)))
+
+
 def gather_record(rec, mesh: Mesh):
     """A whole owners, spheres or triangles record from every rank's
     block, in one collective."""
@@ -369,7 +490,8 @@ def shard_state(state: SimState, mesh: Mesh) -> SimState:
         if getattr(lay, rec):
             ch[rec] = _split_record(getattr(state, rec), mesh)
     for name in lay.tables:
-        ch[name] = shard_table(getattr(state, name), mesh, lay.n_owners)
+        ch[name] = shard_table(getattr(state, name), mesh, lay.n_owners,
+                               lay.n_spheres)
     return state.replace(**ch, layout=lay)
 
 

@@ -66,12 +66,12 @@ def bucket_rows(pos, reach, owner, family, gid, bin_size, domain,
     px = torch.minimum(torch.clamp(pos[:, 0], min=0.0), domain[0])
     rows = torch.cat([pos, reach[:, None], _words(owner), _words(family),
                       _words(gid), torch.zeros_like(reach)[:, None]], dim=1)
-    invalid = torch.cat([torch.zeros(3, dtype=F, device=dev),
-                         torch.full((1,), _INVALID_REACH, dtype=F,
-                                    device=dev),
-                         torch.tensor([-1, 0, -1], dtype=I,
-                                      device=dev).view(F),
-                         torch.zeros(1, dtype=F, device=dev)])
+    # [0, 0, 0, -1e30, owner -1, family 0, gid -1, 0], filled on the
+    # device: a host list would be a copy the host waits for
+    invalid = torch.zeros(ROW_W, dtype=F, device=dev)
+    invalid[3] = _INVALID_REACH
+    invalid.view(I)[4] = -1
+    invalid.view(I)[6] = -1
     send = invalid.expand(n_dev, capx + 1, ROW_W).clone()
     ovf = torch.zeros((), dtype=torch.bool, device=dev)
     for t in range(n_dev):
@@ -150,21 +150,23 @@ def keep_resident(rec, resident, a, b, bin_size, nb, cap_loc: int):
 
 
 def find_pairs_ss_spatial(pos, reach, owner, family, family_mask, bin_size,
-                          nb, domain, cap: int, mesh, capx: int):
+                          nb, domain, cap: int, mesh, capx: int,
+                          keep_cap: int | None = None):
     """The SS pairs of the spheres whose index shard each rank passes
     (pos, reach, owner, family: this rank's rows of the global arrays,
     world axes), searched by slab over `mesh`.
 
-    Returns (idA, idB, count, max_occ, bucket_ovf): idA/idB (cap / D,)
-    this rank's pairs in global sphere ids, compacted to the front; the
-    count summed over the ranks, or cap + 1 where a rank kept more than
-    its cap / D rows (the caller's OVF_SS_CAP growth then takes it); the
-    largest bin occupancy; and whether any rank's buckets or kernel C's
-    table over its received rows overflowed (the caller grows capx)."""
+    Returns (idA, idB, count, max_occ, bucket_ovf): idA/idB (keep_cap,)
+    this rank's pairs in global sphere ids, compacted to the front
+    (keep_cap None: cap / D rows); the count summed over the ranks, or
+    cap + 1 where a rank kept more than its rows (the caller's OVF_SS_CAP
+    growth then takes it); the largest bin occupancy; and whether any
+    rank's buckets or kernel C's table over its received rows overflowed
+    (the caller grows capx)."""
     d = mesh.size
     if cap % d:
         raise ValueError(f"cap {cap} does not divide by {d} ranks")
-    cap_loc = cap // d
+    cap_loc = cap // d if keep_cap is None else keep_cap
     rec, resident, bucket_ovf = exchange(pos, reach, owner, family,
                                          bin_size, domain, mesh, capx)
     c_cap = received_cap(cap, pos.shape[0] * d, rec.shape[0])

@@ -24,14 +24,15 @@ factor per block from the blocks' measured times (``Engine``). Growths
 and tuner moves go to ``Engine.log`` at STEP_METRIC.
 
 Multi-device: ``Engine(cfg, mesh)`` runs on one rank's shard of the
-state (``parallel.mesh``). A refresh gathers the geometry and the old
-tables' keys, searches (by x-slab with cfg.spatial_refresh,
-``parallel.spatial``), carries the history over the whole pair list and
-finalizes the rank's block of rows, then reduces the overflow word over
-the ranks; a step runs the kernels on the rank's rows and
-reduce-scatters the wrench. Every host decision reads values that are
-equal on every rank (the reduced overflow word, counts summed over the
-ranks, rank 0's tuner moves), so the ranks call the same collectives.
+state (``parallel.mesh``). A refresh gathers the owner records, searches
+the rank's share (by x-slab with cfg.spatial_refresh,
+``parallel.spatial``), sends each new row to its home rank, carries
+history against the rank's own old rows and finalizes them, then
+reduces the overflow word over the ranks (``_refresh_on_mesh``); a step
+runs the kernels on the rank's rows and reduce-scatters the wrench.
+Every host decision reads values that are equal on every rank (the
+reduced overflow word, counts reduced over the ranks, rank 0's tuner
+moves), so the ranks call the same collectives.
 
 Timers: ``Engine.advance`` marks each chunk's refresh and its K steps
 with CUDA events on the card (the host clock on the CPU) and folds them
@@ -58,7 +59,7 @@ from .ops import sweep, voxel
 from .initializer import uniq_fields
 from .ops.fused_force import fused_wrench_ss
 from .parallel import mesh as pmesh
-from .parallel.spatial import find_pairs_ss_spatial
+from .parallel.spatial import find_pairs_ss_spatial, received_cap
 from .state import (
     OVF_AVG_CONTACTS,
     OVF_LCAP,
@@ -167,26 +168,42 @@ def tri_world_nodes(owners, tris, voxel_size):
 
 
 def ss_search_inputs(state: SimState, params: RuntimeParams,
-                     voxel_size: float, relabel: bool = True) -> dict:
+                     voxel_size: float, relabel: bool = True,
+                     mesh=None) -> dict:
     """Sphere positions, reaches and grid of the SS pair search, plus
-    the margins and the velocity measure the rest of the refresh uses.
-    `relabel` False keeps the world axes (the spatial search slabs x)."""
+    the margins, radii and velocity measures the rest of the refresh
+    uses (`max_vel`: the largest uncapped |v|, inf where one is not
+    finite). `relabel` False keeps the world axes (the spatial search
+    slabs x). With `mesh`, `state` holds a rank's share of the spheres
+    and the grid and `max_vel` are those of every rank's."""
     owners, spheres = state.owners, state.spheres
     pos, margin, absv, raw_absv = sphere_pos_margins(owners, spheres,
                                                      params, voxel_size)
     reach = spheres.radius + margin
-    bin_size, nb = binning.build_grid(params.domain, reach.max(),
-                                      params.bin_factor)
+    max_vel = torch.where(torch.all(torch.isfinite(raw_absv)),
+                          _max0(raw_absv), torch.inf).to(F)
+    if mesh is None:
+        top = reach.max()
+    else:
+        top, max_vel = mesh.all_max(torch.stack([_max0(reach),
+                                                 max_vel])).unbind()
+    bin_size, nb = binning.build_grid(params.domain, top, params.bin_factor)
     # CD axis relabel: the axis with the most bins becomes the slowest
     # (flat-bin major) axis. Distances do not depend on the axis order;
     # only the bin order of the sorted table does.
     perm = (torch.argsort(nb, stable=True) if relabel
             else torch.arange(3, device=nb.device))
-    return dict(pos=pos, margin=margin, raw_absv=raw_absv,
+    return dict(pos=pos, margin=margin, raw_absv=raw_absv, max_vel=max_vel,
                 pos_cd=pos[:, perm], reach=reach, owner=spheres.owner,
+                radius=spheres.radius,
                 family=owners.family[spheres.owner.long()],
                 family_mask=params.family_mask, bin_size=bin_size,
                 nb_cd=nb[perm], dom_cd=params.domain[perm], perm=perm)
+
+
+def _max0(x):
+    """The largest of the non-negative `x`, 0 where it is empty."""
+    return torch.cat([x.reshape(-1), x.new_zeros(1)]).max()
 
 
 def _cross_lcap(cfg, n_spheres: int) -> int:
@@ -290,7 +307,7 @@ def st_pairs(state, params, cfg, q, tab):
     sorted table `tab` (in two-class mode a single-grid table of all
     spheres, built here, takes its place), or, once cfg.st_bruteforce is
     set, the exact S x T matrix."""
-    owners, spheres, tris = state.owners, state.spheres, state.tris
+    owners, tris = state.owners, state.tris
     dev = state.device
     nodes = tri_world_nodes(owners, tris, cfg.voxel_size)
     arm = _norm(tris.nodes).max(dim=-1).values
@@ -300,17 +317,17 @@ def st_pairs(state, params, cfg, q, tab):
         # facets too large for bin enumeration: O(S*T) candidates in
         # world axes, compacted like the sphere-analytical pairs
         ovl, _, _ = narrowphase.sphere_triangle(
-            q["pos"][:, None, :], spheres.radius[:, None],
+            q["pos"][:, None, :], q["radius"][:, None],
             nodes[None, :, 0], nodes[None, :, 1], nodes[None, :, 2])
         ovl_m = ovl + q["margin"][:, None] + m_t[None, :]
         tA, tB, n_st = binning.find_pairs_sa(
-            ovl_m, spheres.owner, q["family"], tris.owner, tri_fam,
+            ovl_m, q["owner"], q["family"], tris.owner, tri_fam,
             params.family_mask, cfg.cap_st)
         return tA, tB, n_st, torch.zeros((), dtype=I, device=dev)
     if cfg.cd_two_class:
         tab = binning.build_sphere_table(
             q["pos_cd"], q["reach"], q["owner"], q["family"],
-            q["bin_size"], q["nb_cd"], max(spheres.n, 1))
+            q["bin_size"], q["nb_cd"], max(q["reach"].shape[0], 1))
     # the table's axes are the relabelled ones; so are the nodes here
     nodes_cd = nodes[:, :, q["perm"]]
     amin = nodes_cd.min(dim=1).values - m_t[:, None]
@@ -346,13 +363,13 @@ def _capped(table, cap, bit):
     return table.replace(count=torch.clamp(table.count, max=cap)), ovf
 
 
-def _ss_pairs(q, spheres, params, cfg, mark):
-    """The SS search over every sphere: kernel C on one grid, or the
-    two-class search. Returns (idA, idB, count, sorted table, overflow
-    bits)."""
+def _ss_pairs(q, params, cfg, mark):
+    """The SS search over the spheres of `q`: kernel C on one grid, or
+    the two-class search. Returns (idA, idB, count, sorted table,
+    overflow bits)."""
     if cfg.cd_two_class:
-        return two_class_pairs(q, spheres.radius <= params.cls_thr, params,
-                               cfg, spheres.n)
+        return two_class_pairs(q, q["radius"] <= params.cls_thr, params,
+                               cfg, q["reach"].shape[0])
     idA, idB, n_ss, tab = sweep.find_pairs_ss(
         q["pos_cd"], q["reach"], q["owner"], q["family"],
         params.family_mask, q["bin_size"], q["nb_cd"], cfg.cap_ss,
@@ -360,51 +377,100 @@ def _ss_pairs(q, spheres, params, cfg, mark):
     return idA, idB, n_ss, tab, torch.zeros((), dtype=I, device=idA.device)
 
 
-def _refresh(state, params, cfg, mark, q, ss_pairs, take=None):
-    """The tables of a refresh from the SS search `ss_pairs`(q) -> (idA,
-    idB, count, sorted table, overflow bits). `state` holds every owner,
-    sphere and triangle and the old tables' keys and history; the pair
-    lists are whole, carried once, and `take`(kind, table), where given,
-    picks the rows of each carried table that this rank finalizes and
-    keeps (a mesh refresh)."""
+def sa_pairs(owners, anals, q, params, cfg, cap):
+    """The sphere-analytical pairs of the spheres of `q`, brute force over
+    their (S, A) margined-overlap matrix: (row of `q`, analytical id,
+    count), `cap` rows."""
+    own_b = anals.owner.long()
+    base_b = voxel.decode_f32(owners.vox[own_b], owners.loc[own_b],
+                              cfg.voxel_size)
+    obj_pos = base_b + quat.rotate(owners.quat[own_b], anals.relpos)
+    obj_dir = quat.rotate(owners.quat[own_b], anals.direction)
+    m_a = owner_margin(owners, anals.owner,
+                       torch.zeros_like(anals.normal_sign), params)
+    ovl, _, _ = narrowphase.sphere_analytical(
+        q["pos"][:, None, :], q["radius"][:, None],
+        anals.objtype[None, :], obj_pos[None], obj_dir[None],
+        anals.size[None], anals.normal_sign[None, :],
+    )
+    ovl_m = ovl + q["margin"][:, None] + m_a[None, :]
+    return binning.find_pairs_sa(
+        ovl_m, q["owner"], q["family"], anals.owner, owners.family[own_b],
+        params.family_mask, cap)
+
+
+def _guards(overflow, max_vel, n_live, n_spheres, params):
+    """The overflow word with the divergence guards: a velocity past
+    error_out_vel (or not finite), too many contacts a sphere."""
+    overflow = overflow | torch.where(~(max_vel <= params.error_out_vel),
+                                      OVF_VEL, 0).to(I)
+    avg_cnt = 2.0 * n_live.to(F) / max(n_spheres, 1)
+    return overflow | torch.where(avg_cnt > params.error_out_avg_contacts,
+                                  OVF_AVG_CONTACTS, 0).to(I)
+
+
+def _refreshed(kind, old, a, b, n, cap, bit, recs, params, cfg, mark,
+               uniq_cap=0, ids=None):
+    """Carry, mark, cap and finalize one table of `cap` rows: the history
+    of `old` carried onto the front-compacted pairs (a, b) (`n` counts
+    every pair found, those past `cap` too), the live rows whose family
+    pair persists marked so, and the table finalized on `recs` (owners,
+    spheres, triangles, analyticals). `ids`, on a mesh, takes the carried
+    table and the sphere and triangle records to the ids the finalize
+    reads, and gives the map of the finalized table back to global ids.
+    Returns (table, live count, overflow bits, contacts lost)."""
+    owners, sph, tris, anals = recs
+    model = cfg.force_model
+    persistency = cfg.use_persistency
+    t, lost = history.carry_history(old, a, b, torch.clamp(n, max=cap).to(I),
+                                    model.contact_wildcards, persistency)
+    if kind == "ss":
+        mark("history")
+    overflow = torch.where(n > cap, bit, 0).to(I)
+    if old.cap != cap:
+        # a grown capacity, or a whole table's home rows: the carried rows
+        # on a table of the new size (finalize fills the rest)
+        t = ContactTable.empty(
+            cap, fused=kind == "ss" and forces.fused_ss(model),
+            device=t.idA.device).replace(idA=t.idA, idB=t.idB,
+                                         persist=t.persist,
+                                         wildcards=t.wildcards, count=t.count)
+    back = None
+    if ids is not None:
+        t, sph, tris, back = ids(kind, t, sph, tris)
+    if persistency:
+        src_b = {"ss": sph, "st": tris, "sa": anals}[kind]
+        t = _mark_persistent(t, owners.family[sph.owner.long()],
+                             owners.family[src_b.owner.long()], params)
+        t, ovf = _capped(t, cap, bit)
+        overflow |= ovf
+    count = t.count
+    t = forces.finalize_table(kind, t, owners, sph, tris, anals, params,
+                              model, uniq_cap=uniq_cap)
+    return (t if back is None else back(t)), count, overflow, lost
+
+
+def _refresh(state, params, cfg, mark):
+    """The tables of a refresh of a whole state: each list searched over
+    every sphere and carried once."""
     owners, spheres, tris, anals = (state.owners, state.spheres,
                                     state.tris, state.anals)
-    wc_names = cfg.force_model.contact_wildcards
-    persistency = cfg.use_persistency
-    sph_family = q["family"]
-    raw_absv = q["raw_absv"]
-    # uncapped |v| for the divergence guard; a non-finite value trips it
-    max_vel = torch.where(torch.all(torch.isfinite(raw_absv)),
-                          raw_absv.max(), torch.inf).to(F)
-    idA, idB, n_ss, tab, overflow = ss_pairs(q)
+    recs = (owners, spheres, tris, anals)
+    q = ss_search_inputs(state, params, cfg.voxel_size)
+    idA, idB, n_ss, tab, overflow = _ss_pairs(q, params, cfg, mark)
     mark("pairs")
     lost = state.lost_contacts
 
-    def refreshed(kind, a, b, n, bit, fam_b, uniq_cap=0):
-        """Carry, mark, cap and finalize one table; its live count."""
+    def refreshed(kind, a, b, n, bit, uniq_cap=0):
+        """One table (``_refreshed``) at its capacity; its live count."""
         nonlocal overflow, lost
-        cap = getattr(cfg, _CAPS[kind])
-        t, n_lost = history.carry_history(
-            getattr(state, kind), a, b, torch.clamp(n, max=cap).to(I),
-            wc_names, persistency)
-        lost = lost + n_lost
-        if persistency:
-            t = _mark_persistent(t, sph_family, fam_b, params)
-        if kind == "ss":
-            mark("history")
-        overflow |= torch.where(n > cap, bit, 0).to(I)
-        if persistency:
-            t, ovf = _capped(t, cap, bit)
-            overflow |= ovf
-        count = t.count
-        if take is not None:
-            t = take(kind, t)
-        t = forces.finalize_table(kind, t, owners, spheres, tris, anals,
-                                  params, cfg.force_model, uniq_cap=uniq_cap)
+        t, count, ovf, n_lost = _refreshed(
+            kind, getattr(state, kind), a, b, n, getattr(cfg, _CAPS[kind]),
+            bit, recs, params, cfg, mark, uniq_cap)
+        overflow, lost = overflow | ovf, lost + n_lost
         return t, count
 
-    ss, n_live = refreshed("ss", idA, idB, n_ss, OVF_SS_CAP, sph_family,
-                           cfg.uniq_cap)
+    ss, n_live = refreshed("ss", idA, idB, n_ss, OVF_SS_CAP, cfg.uniq_cap)
     if cfg.uniq_cap:
         overflow |= torch.where(ss.uniq_max > cfg.uniq_cap, OVF_UNIQ,
                                 0).to(I)
@@ -414,37 +480,16 @@ def _refresh(state, params, cfg, mark, q, ss_pairs, take=None):
     if tris.n > 0:
         tA, tB, n_st, ovf_st = st_pairs(state, params, cfg, q, tab)
         overflow |= ovf_st
-        st, _ = refreshed("st", tA, tB, n_st, OVF_ST_CAP,
-                          owners.family[tris.owner.long()])
+        st, _ = refreshed("st", tA, tB, n_st, OVF_ST_CAP)
 
     sa = state.sa
     if anals.n > 0:
-        own_b = anals.owner.long()
-        base_b = voxel.decode_f32(owners.vox[own_b], owners.loc[own_b],
-                                  cfg.voxel_size)
-        obj_pos = base_b + quat.rotate(owners.quat[own_b], anals.relpos)
-        obj_dir = quat.rotate(owners.quat[own_b], anals.direction)
-        m_a = owner_margin(owners, anals.owner,
-                           torch.zeros_like(anals.normal_sign), params)
-        ovl, _, _ = narrowphase.sphere_analytical(
-            q["pos"][:, None, :], spheres.radius[:, None],
-            anals.objtype[None, :], obj_pos[None], obj_dir[None],
-            anals.size[None], anals.normal_sign[None, :],
-        )
-        ovl_m = ovl + q["margin"][:, None] + m_a[None, :]
-        aA, aB, n_sa = binning.find_pairs_sa(
-            ovl_m, spheres.owner, sph_family, anals.owner,
-            owners.family[own_b], params.family_mask, cfg.cap_sa)
-        sa, _ = refreshed("sa", aA, aB, n_sa, OVF_SA_CAP,
-                          owners.family[own_b])
+        aA, aB, n_sa = sa_pairs(owners, anals, q, params, cfg, cfg.cap_sa)
+        sa, _ = refreshed("sa", aA, aB, n_sa, OVF_SA_CAP)
 
-    overflow |= torch.where(~(max_vel <= params.error_out_vel), OVF_VEL,
-                            0).to(I)
-    avg_cnt = 2.0 * n_live.to(F) / max(spheres.n, 1)
-    overflow |= torch.where(avg_cnt > params.error_out_avg_contacts,
-                            OVF_AVG_CONTACTS, 0).to(I)
+    overflow = _guards(overflow, q["max_vel"], n_live, spheres.n, params)
     return state.replace(ss=ss, st=st, sa=sa, overflow=overflow,
-                         max_vel=max_vel, lost_contacts=lost)
+                         max_vel=q["max_vel"], lost_contacts=lost)
 
 
 def refresh_contacts(state: SimState, params: RuntimeParams,
@@ -458,10 +503,7 @@ def refresh_contacts(state: SimState, params: RuntimeParams,
     mark = mark or _no_mark
     if mesh is not None:
         return _refresh_on_mesh(state, params, cfg, mark, mesh)
-    q = ss_search_inputs(state, params, cfg.voxel_size)
-    return _refresh(state, params, cfg, mark, q,
-                    lambda q: _ss_pairs(q, state.spheres, params, cfg,
-                                        mark))
+    return _refresh(state, params, cfg, mark)
 
 
 def spatial_capx_auto(n_spheres: int, n_dev: int) -> int:
@@ -469,29 +511,102 @@ def spatial_capx_auto(n_spheres: int, n_dev: int) -> int:
     return max(128, 2 * n_spheres // (n_dev * n_dev) + 128)
 
 
-def _gather_keys(table, mesh):
-    """A split table's keys, persistency marks and wildcards from every
-    rank: what the history carry reads of the old table."""
-    names = list(table.wildcards)
-    a, b, p, *wc = mesh.gather_fields(
-        [table.idA, table.idB, table.persist,
-         *[table.wildcards[k] for k in names]])
-    return table.replace(idA=a, idB=b, persist=p,
-                         wildcards=dict(zip(names, wc)))
+# the per-sphere fields of ss_search_inputs that a search over every
+# sphere reads (pos_cd follows from pos)
+_Q_ROWS = ("pos", "margin", "reach", "owner", "family", "radius")
+
+
+def _q_rows(q, lo, hi):
+    """`q` of the spheres lo..hi."""
+    return {**q, **{k: q[k][lo:hi] for k in _Q_ROWS}}
+
+
+def _whole_q(q, mesh):
+    """`q` of a rank's spheres with its per-sphere fields gathered from
+    every rank (one collective): what a search over every sphere reads."""
+    out = dict(q)
+    out.update(zip(_Q_ROWS, mesh.gather_fields([q[k] for k in _Q_ROWS])))
+    out["pos_cd"] = out["pos"][:, q["perm"]]
+    return out
+
+
+def _home_pairs(a, b, n, n_spheres, cap, mesh, send):
+    """The rank's home pairs (``parallel.mesh.home_of`` their A side) of a
+    front-compacted pair list (live where a >= 0; `n` counts every pair
+    found, those past the list too), front-compacted into `cap` rows,
+    and their count (rows past `cap` are dropped and counted). With
+    `send` the list is this rank's share of the pairs and each is sent
+    home (one ``Mesh.exchange``); else every rank holds the whole list
+    and keeps its own. On one rank every pair is home: the list is cut or
+    padded to `cap` rows as it is."""
+    d = mesh.size
+    if d == 1:
+        return _fit(a, cap), _fit(b, cap), n
+    home = pmesh.home_of(a, n_spheres, d)
+    dev = a.device
+    outs = (torch.full((cap,), -1, dtype=I, device=dev),
+            torch.full((cap,), -1, dtype=I, device=dev))
+    zero = torch.zeros((), dtype=I, device=dev)
+    if not send:
+        (a, b), k = binning._compact((a >= 0) & (home == mesh.rank), (a, b),
+                                     cap, zero, outs)
+        return a, b, k.to(I)
+    rows, _ = mesh.exchange(torch.stack([a, b], 1),
+                            torch.where(a >= 0, home, d))
+    live = torch.ones(rows.shape[0], dtype=torch.bool, device=dev)
+    (a, b), k = binning._compact(live, (rows[:, 0], rows[:, 1]), cap, zero,
+                                 outs)
+    return a, b, k.to(I)
+
+
+def _fit(x, rows):
+    """A front-compacted id list cut or padded (-1) to `rows` rows."""
+    if x.shape[0] >= rows:
+        return x[:rows]
+    return torch.cat([x, x.new_full((rows - x.shape[0],), -1)])
+
+
+def _home_rows(table, split, n_spheres, mesh):
+    """The rows of an old table a rank carries history against: its block
+    where the table is split (every row there is home), else the whole
+    table's home rows, the others marked dead."""
+    if split:
+        return table
+    mine = (table.idA >= 0) & (
+        pmesh.home_of(table.idA, n_spheres, mesh.size) == mesh.rank)
+    return table.replace(idA=torch.where(mine, table.idA, -1),
+                         idB=torch.where(mine, table.idB, -1))
+
+
+def _cat_spheres(a, b):
+    return a.replace(wildcards={}, **{
+        k: torch.cat([getattr(a, k), getattr(b, k)])
+        for k in ("owner", "relpos", "radius", "mat")})
 
 
 def _refresh_on_mesh(state, params, cfg, mark, mesh):
-    """The refresh of a rank's shard. The owners, spheres and triangles
-    and the old tables' keys are gathered from every rank; the SS pairs
-    come from the spatial search (cfg.spatial_refresh, with the spheres
-    dividing by the world size as the capacities do: world axes, this
-    rank's index shard searched by slab, the ranks' lists gathered, and
-    with persistency their live rows compacted to the front) or from the
-    search over every sphere, which each rank runs alike; ST and SA
-    pairs likewise. Each table's history is carried once over its whole
-    list, and each rank finalizes and keeps its own block of the rows,
-    cap / D of them. The overflow word is reduced over the ranks, so
-    every rank takes the same growth and retry."""
+    """The refresh of a rank's shard: each rank searches its own share,
+    sends each new row to its home rank (``parallel.mesh.home_of``: the
+    index shard of its A-side sphere, the same at every refresh), carries
+    history against its own old rows and finalizes them, as the JAX
+    package's refresh partitions over its mesh. Each table holds cap / D
+    rows a rank.
+
+    Gathered: the owner records; with triangles, every sphere's search
+    record (the ST sweep reads the sorted table of every sphere); without
+    the spatial search, every sphere's search record for the search over
+    every sphere, which each rank runs alike. SS pairs come from the
+    spatial search (cfg.spatial_refresh, the spheres split over the
+    ranks: this rank's index shard searched by slab, each kept pair sent
+    home) or from that whole search (each rank keeps its home pairs). ST
+    pairs come from the sweep over this rank's triangle shard (over every
+    triangle where they do not divide), sent home; SA pairs from the
+    brute force over the rank's home spheres, home already. Where the
+    spheres or triangles are split, a finalize asks the B-side records of
+    its rows of their holders (``parallel.mesh.fetch_record``). A rank
+    whose home rows pass cap / D raises the table's overflow bit. The
+    overflow word, the live SS count and the lost contacts are reduced
+    over the ranks, so every rank takes the same growth and retry."""
     lay = state.layout
     if lay is None:
         raise ValueError("a refresh on a mesh takes a rank's shard "
@@ -501,57 +616,138 @@ def _refresh_on_mesh(state, params, cfg, mark, mesh):
         if getattr(cfg, name) % d:
             raise ValueError(f"{name} {getattr(cfg, name)} does not divide "
                              f"by {d} ranks (Engine(cfg, mesh) rounds it)")
-    fresh = ["ss"] + (["st"] if lay.n_tris else []) + (
-        ["sa"] if state.anals.n else [])
-    whole = {rec: pmesh.gather_record(getattr(state, rec), mesh)
-             for rec in ("owners", "spheres", "tris") if getattr(lay, rec)}
-    whole.update({k: _gather_keys(getattr(state, k), mesh)
-                  for k in fresh if k in lay.tables})
-    g = state.replace(**whole, layout=None)
-    spatial = cfg.spatial_refresh and lay.n_spheres % d == 0
-    q = ss_search_inputs(g, params, cfg.voxel_size, relabel=not spatial)
+    n_sph, n_tri = lay.n_spheres, lay.n_tris
+    lo, hi = pmesh.home_range(n_sph, d, r)
+    owners = (pmesh.gather_record(state.owners, mesh) if lay.owners
+              else state.owners)
+    g = state.replace(owners=owners)
+    spatial = cfg.spatial_refresh and lay.spheres
+    # q: the search record of the rank's home spheres; qa: of every
+    # sphere, where a search over every sphere reads it
+    if lay.spheres:
+        q = ss_search_inputs(g, params, cfg.voxel_size, relabel=not spatial,
+                             mesh=mesh)
+        qa = _whole_q(q, mesh) if n_tri or not spatial else None
+    else:
+        # the spheres are whole on every rank: so is their record
+        qa = ss_search_inputs(g, params, cfg.voxel_size)
+        q = _q_rows(qa, lo, hi)
+    dev = state.device
+    lost = torch.zeros((), dtype=I, device=dev)
 
-    def spatial_pairs(q):
-        s = lay.n_spheres // d
-        rows = slice(r * s, (r + 1) * s)
-        capx = cfg.spatial_capx or spatial_capx_auto(lay.n_spheres, d)
-        a, b, n_ss, _, bucket_ovf = find_pairs_ss_spatial(
-            q["pos"][rows], q["reach"][rows], q["owner"][rows],
-            q["family"][rows], params.family_mask, q["bin_size"],
-            q["nb_cd"], params.domain, cfg.cap_ss, mesh, capx)
-        idA, idB = mesh.gather_rows(torch.stack([a, b], 1)).unbind(1)
-        if cfg.use_persistency:
-            # re-injection appends after the count: live rows first
-            order = torch.sort((idA < 0).to(I), stable=True).indices
-            idA, idB = idA[order], idB[order]
-        # the ST search reads the sorted table of every sphere
-        tab = (binning.build_sphere_table(
-            q["pos"], q["reach"], q["owner"], q["family"], q["bin_size"],
-            q["nb_cd"], max(lay.n_spheres, 1)) if lay.n_tris else None)
-        return (idA.contiguous(), idB.contiguous(), n_ss, tab,
-                torch.where(bucket_ovf, OVF_SPATIAL_BUCKET, 0).to(I))
+    tab = None
+    if spatial:
+        capx = cfg.spatial_capx or spatial_capx_auto(n_sph, d)
+        # the pairs a rank keeps by slab, before each goes home, in as
+        # many rows as kernel C's table over its received rows: each kept
+        # pair is one of C's, so however the slabs split the pairs against
+        # the home shards, the list overflows only where C's table did
+        a, b, n_found, _, bucket_ovf = find_pairs_ss_spatial(
+            q["pos"], q["reach"], q["owner"], q["family"],
+            params.family_mask, q["bin_size"], q["nb_cd"], params.domain,
+            cfg.cap_ss, mesh, capx,
+            keep_cap=received_cap(cfg.cap_ss, n_sph, d * capx))
+        overflow = torch.where(bucket_ovf, OVF_SPATIAL_BUCKET, 0).to(I)
+        if n_tri:
+            tab = binning.build_sphere_table(
+                qa["pos_cd"], qa["reach"], qa["owner"], qa["family"],
+                qa["bin_size"], qa["nb_cd"], max(n_sph, 1))
+    else:
+        a, b, n_found, tab, overflow = _ss_pairs(qa, params, cfg, mark)
+    # more pairs than the table's rows (a rank's home rows past cap / D
+    # raise the bit in its carry too)
+    overflow |= torch.where(n_found > cfg.cap_ss, OVF_SS_CAP, 0).to(I)
+    a, b, n_ss = _home_pairs(a, b, n_found, n_sph, cfg.cap_ss // d, mesh,
+                             send=spatial)
+    mark("pairs")
 
-    def take(kind, t):
-        c = getattr(cfg, _CAPS[kind]) // d
-        rows = slice(r * c, (r + 1) * c)
-        idA = t.idA[rows].contiguous()
-        fused = kind == "ss" and forces.fused_ss(cfg.force_model)
-        return ContactTable.empty(c, fused=fused, device=idA.device).replace(
-            idA=idA, idB=t.idB[rows].contiguous(),
-            persist=t.persist[rows].contiguous(),
-            wildcards={k: v[rows].contiguous()
-                       for k, v in t.wildcards.items()},
-            count=(idA >= 0).sum().to(I))
+    # where the spheres (triangles) are split over several ranks, a
+    # finalize reads the rank's own spheres and, for each row, the B-side
+    # sphere (triangle) fetched from its holder, by ids into those
+    # records; where a record is whole here, by global id
+    fetch_sph = lay.spheres and d > 1
+    fetch_tri = lay.tris and d > 1
 
-    out = _refresh(g, params, cfg, mark, q,
-                   spatial_pairs if spatial else
-                   (lambda q: _ss_pairs(q, g.spheres, params, cfg, mark)),
-                   take)
-    bit = torch.arange(31, dtype=I, device=out.overflow.device)
-    flags = mesh.all_max((out.overflow >> bit) & 1)
-    return out.replace(
-        owners=state.owners, spheres=state.spheres, tris=state.tris,
-        overflow=(flags << bit).sum().to(I),
+    recs = (owners, state.spheres, state.tris, state.anals)
+
+    def to_local(kind, t, sph, tris):
+        """The rank's rows in ids into the records its finalize reads: A
+        into the rank's own spheres, B into the records fetched from their
+        holders; and the map of the finalized rows back to global ids."""
+        glob_b = None
+        live = t.idA >= 0
+        if fetch_sph:
+            t = t.replace(idA=torch.where(live, t.idA - lo, -1))
+        if kind == "ss" and fetch_sph or kind == "st" and fetch_tri:
+            glob_b = t.idB
+            rec_b = pmesh.fetch_record(sph if kind == "ss" else tris,
+                                       glob_b, mesh)
+            row = torch.arange(t.cap, dtype=I, device=dev)
+            if kind == "ss":
+                sph, row = _cat_spheres(sph, rec_b), row + sph.n
+            else:
+                tris = rec_b
+            t = t.replace(idB=torch.where(live, row, -1))
+
+        def back(t):
+            live = t.idA >= 0
+            if glob_b is not None:
+                j = t.idB - (state.spheres.n if kind == "ss" else 0)
+                t = t.replace(idB=torch.where(
+                    live, glob_b[torch.clamp(j, min=0).long()], -1))
+            if fetch_sph:
+                t = t.replace(idA=torch.where(live, t.idA + lo, -1))
+            return t
+
+        return t, sph, tris, back
+
+    def refreshed(kind, a, b, n, bit, uniq_cap=0):
+        """The rank's rows of one table (``_refreshed``, cap / D rows),
+        carried against its own old rows; its live count."""
+        nonlocal overflow, lost
+        old = _home_rows(getattr(state, kind), kind in lay.tables, n_sph,
+                         mesh)
+        t, count, ovf, n_lost = _refreshed(
+            kind, old, a, b, n, getattr(cfg, _CAPS[kind]) // d, bit, recs,
+            params, cfg, mark, uniq_cap, ids=to_local)
+        overflow, lost = overflow | ovf, lost + n_lost
+        return t, count
+
+    ss, n_live = refreshed("ss", a, b, n_ss, OVF_SS_CAP, cfg.uniq_cap)
+    if cfg.uniq_cap:
+        overflow |= torch.where(ss.uniq_max > cfg.uniq_cap, OVF_UNIQ,
+                                0).to(I)
+    mark("finalize")
+
+    st = state.st
+    if n_tri:
+        # this rank's triangles against the sorted table of every sphere
+        tA, tB, n_found, ovf_st = st_pairs(g, params, cfg, qa, tab)
+        t_lo = pmesh.home_range(n_tri, d, r)[0] if lay.tris else 0
+        tB = torch.where(tA >= 0, tB + t_lo, -1)
+        overflow |= ovf_st | torch.where(n_found > cfg.cap_st, OVF_ST_CAP,
+                                         0).to(I)
+        st, _ = refreshed("st", *_home_pairs(
+            tA, tB, n_found, n_sph, cfg.cap_st // d, mesh, send=lay.tris),
+            OVF_ST_CAP)
+
+    sa = state.sa
+    if state.anals.n:
+        aA, aB, n_sa = sa_pairs(owners, state.anals, q, params, cfg,
+                                cfg.cap_sa // d)
+        sa, _ = refreshed("sa", torch.where(aA >= 0, aA + lo, -1), aB,
+                          n_sa, OVF_SA_CAP)
+
+    bit = torch.arange(31, dtype=I, device=dev)
+    sums = mesh.all_sum(torch.cat([(overflow >> bit) & 1,
+                                   torch.stack([n_live, lost]).to(I)]))
+    overflow = ((sums[:31] > 0).to(I) << bit).sum().to(I)
+    fresh = {"ss"} | ({"st"} if n_tri else set()) | (
+        {"sa"} if state.anals.n else set())
+    return state.replace(
+        ss=ss, st=st, sa=sa,
+        overflow=_guards(overflow, q["max_vel"], sums[31], n_sph, params),
+        max_vel=q["max_vel"], lost_contacts=state.lost_contacts + sums[32],
         layout=lay._replace(tables=tuple(
             k for k in _CAPS if k in fresh or k in lay.tables)))
 
@@ -966,13 +1162,14 @@ class Engine:
     def maybe_shrink(self, state: SimState) -> SimState:
         """Shrink a table whose capacity exceeds 1.4x what its count
         needs (1.25x + 64, rounded up to a coarse quantum so that count
-        jitter keeps the chosen capacity): every per-row cost of a step
-        scales with capacity, not count."""
+        jitter keeps the chosen capacity; on a mesh the count is D times
+        the fullest rank's): every per-row cost of a step scales with
+        capacity, not count."""
         cfg = self.cfg
         changes = {}
         for name, cap in (("ss", cfg.cap_ss), ("st", cfg.cap_st),
                           ("sa", cfg.cap_sa)):
-            cnt = self._count(state, name)
+            cnt = self._rows_needed(state, name)
             quantum = 512 if name == "ss" else 256
             quantum = max(quantum, 1 << max(0, cnt.bit_length() - 5))
             need = self._divisible(
@@ -991,15 +1188,22 @@ class Engine:
             kind: self._shrunk(state, kind, getattr(self.cfg, name))
             for kind, name in _CAPS.items()})
 
+    def _rows_needed(self, state, kind) -> int:
+        """The live rows a table's capacity must hold: its count, or on a
+        mesh D times the fullest rank's count (each rank holds its home
+        rows in cap / D)."""
+        t = getattr(state, kind)
+        if self.mesh is not None and kind in state.layout.tables:
+            return self.mesh.size * int(self.mesh.all_max(t.count))
+        return int(t.count)
+
     def _shrunk(self, state, kind, cap):
-        """A table at its new capacity: on a mesh a split table's rows are
-        gathered, cut and split anew (its live rows may sit on any rank)."""
+        """A table at its new capacity: on a mesh a split table's block is
+        cut where it lies, to cap / D rows (its live rows are in front)."""
         t = getattr(state, kind)
         if self.mesh is None or kind not in state.layout.tables:
             return t.shrunk(cap)
-        lay = state.layout
-        whole = pmesh.gather_table(t, self.mesh, lay.n_owners)
-        return pmesh.shard_table(whole.shrunk(cap), self.mesh, lay.n_owners)
+        return t.shrunk(cap // self.mesh.size)
 
     def refresh(self, state: SimState, params: RuntimeParams) -> SimState:
         """Refresh with capacity growth, retried from the retained

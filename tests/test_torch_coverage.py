@@ -2,13 +2,13 @@
 
 ``MAP`` names, for each ``test_*`` function of each JAX test file under
 tests/ (every ``test_*.py`` but the port's ``test_torch_*.py``), the port
-test that holds what it asserts (a node id, on the CPU or the card), or
-"not ported" with its reason, quoted from the "Not to port" list of
-ROADMAP.md. Both sides are read with ``ast``, nothing is imported: a
-JAX test with no entry fails its file's case, so does an entry whose
-JAX test or port test does not exist (a bracketed parameter must be a
-string constant of the port test's module), and a reason that the list
-does not hold.
+test that holds what it asserts (a node id, on the CPU or the card, or a
+list of them where its halves are held apart), or "not ported" with its
+reason, quoted from the "Not to port" list of ROADMAP.md. Both sides
+are read with ``ast``, nothing is imported: a JAX test with no entry
+fails its file's case, so does an entry whose JAX test or port test does
+not exist (a bracketed parameter must be a string constant of the port
+test's module), and a reason that the list does not hold.
 """
 
 import ast
@@ -34,7 +34,6 @@ HBM = not_ported("The TPU HBM model (`estimate_hbm_peak`, `_peak_at_cap`, "
 SWEEP_OFF = not_ported("the sweep-off and `pallas_win` rungs of `grow_for`. "
                        "Kernel C has no window, so OVF_BIN_OCC and "
                        "OVF_PALLAS_WIN never rise.")
-HLO = not_ported("The HLO-partition checks of the multi-device tests")
 
 API = "test_torch_api.py::"
 BEH = "test_torch_behaviour.py::"
@@ -193,10 +192,17 @@ MAP = {
     "test_multichip.py": {
         "test_eight_device_mesh_matches_single":
             PAR + "test_sharded_step_matches_jax",
-        "test_sharded_step_partitions_big_arrays": HLO,
-        # their physics halves; the HLO halves are not ported (HLO)
-        "test_st_sweep_shards_over_mesh": PAR + "test_production_shape",
-        "test_10k_sphere_mesh_walls_parity": PAR + "test_production_shape",
+        "test_sharded_step_partitions_big_arrays":
+            PAR + "test_step_sizes_are_per_rank",
+        # their physics halves, and each rank's sizes in place of the
+        # HLO's shapes
+        "test_st_sweep_shards_over_mesh": [
+            PAR + "test_production_shape",
+            PAR + "test_plate_rows_match_jax[st]",
+            PAR + "test_refresh_sizes_are_per_rank[tri]"],
+        "test_10k_sphere_mesh_walls_parity": [
+            PAR + "test_production_shape",
+            PAR + "test_refresh_sizes_are_per_rank[tri]"],
     },
     "test_oom_fallback.py": {
         "test_is_device_oom_matcher": OOM,
@@ -263,7 +269,8 @@ MAP = {
     "test_spatial_refresh.py": {
         "test_spatial_matches_global": PAR + "test_spatial_matches_global",
         "test_spatial_family_mask": PAR + "test_spatial_family_mask",
-        "test_spatial_refresh_hlo_partitions_sweep": HLO,
+        "test_spatial_refresh_hlo_partitions_sweep":
+            PAR + "test_refresh_sizes_are_per_rank[bed]",
         "test_spatial_end_to_end_matches_global": PAR + "test_production_shape",
         "test_spatial_keeps_escaped_spheres":
             PAR + "test_spatial_keeps_escaped_spheres",
@@ -376,8 +383,9 @@ def test_every_jax_test_has_a_port_test_or_a_reason(jax_file):
                 f"{jax_file}::{name}: the reason is not in ROADMAP.md's "
                 f"Not to port list: {entry[1]!r}")
         else:
-            assert _port_test_exists(entry), (
-                f"{jax_file}::{name}: no port test {entry}")
+            for node in [entry] if isinstance(entry, str) else entry:
+                assert _port_test_exists(node), (
+                    f"{jax_file}::{name}: no port test {node}")
 
 
 def test_map_names_only_jax_test_files():

@@ -5,8 +5,11 @@ and ``tests/test_multichip.py``.
 One module fixture starts four rank processes (``torch_mesh_worker.py``)
 that run every case once and write their results; each test computes its
 JAX reference (the 8-device CPU mesh of ``conftest.py``) while the ranks
-run, then reads theirs. Pair sets and per-owner results are compared,
-never row order. World size 1 runs in this process over a ``HashStore``.
+run, then reads theirs. Pair sets, rows keyed by their pair and
+per-owner results are compared, never row order; where the JAX tests
+read XLA's compiled shapes, each rank's sizes are read instead (its
+carry's lists and the collectives ``Mesh.record`` saw). World size 1
+runs in this process over a ``HashStore``.
 """
 
 import dataclasses
@@ -34,7 +37,7 @@ from dem_engine_tpu_torch.parallel import gather_state, make_mesh, shard_state
 from dem_engine_tpu_torch.solver import Engine
 from __graft_entry__ import _build_case
 from test_multichip import _setup as jax_setup32
-from torch_mesh_worker import CASES, SEARCHES, setup32
+from torch_mesh_worker import CASES, PLATE_Z, SEARCHES, move_owners, setup32
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORLD = 4
@@ -231,20 +234,27 @@ def test_bucket_overflow_grows_capx(ranks):
         assert set(map(tuple, x["pairs"])) == set(map(tuple, x["ref"]))
 
 
-def _jax_engine_run(n_chunks, persist_all=False, **kw):
-    """The JAX package's single-device run of ``_build_case(64,
-    update_freq=4, spatial_refresh=True, **kw)`` at Crr = 0: `n_chunks`
-    times its refresh and 4 steps, jitted once, as its Engine runs them
-    when nothing overflows. The pair sets, persistent marks and owners a
-    worker case is held to."""
+@functools.lru_cache(maxsize=None)
+def _jax_programs(**kw):
+    """The JAX package's ``_build_case(64, update_freq=4,
+    spatial_refresh=True, **kw)`` at Crr = 0, and its refresh and 4 steps
+    jitted, once per configuration."""
     jcfg, js, jp = _build_case(64, update_freq=4, spatial_refresh=True,
                                **kw)
     jp = jp.replace(pair_props={**jp.pair_props,
                                 "Crr": jnp.zeros((1, 1), jnp.float32)})
+    return (jcfg, js, jp, jax.jit(partial(jax_refresh, cfg=jcfg)),
+            jax.jit(partial(jax_steps, cfg=jcfg, n_steps=4)))
+
+
+def _jax_engine_run(n_chunks, persist_all=False, **kw):
+    """The JAX package's single-device run of ``_jax_programs(**kw)``:
+    `n_chunks` times its refresh and 4 steps, as its Engine runs them
+    when nothing overflows. The pair sets, persistent marks and owners a
+    worker case is held to."""
+    jcfg, js, jp, refresh, steps = _jax_programs(**kw)
     if persist_all:
         jp = jp.replace(family_persist=jnp.ones_like(jp.family_persist))
-    refresh = jax.jit(partial(jax_refresh, cfg=jcfg))
-    steps = jax.jit(partial(jax_steps, cfg=jcfg, n_steps=4))
     j = js
     for _ in range(n_chunks):
         j = refresh(j, jp)
@@ -252,6 +262,7 @@ def _jax_engine_run(n_chunks, persist_all=False, **kw):
         j = steps(j, jp)
     return dict(
         ss=_set(j.ss.idA, j.ss.idB), st=_set(j.st.idA, j.st.idB),
+        sa=_set(j.sa.idA, j.sa.idB),
         persist=int(np.asarray(j.ss.persist).sum()),
         pos=jvoxel.decode_host(np.asarray(j.owners.vox),
                                np.asarray(j.owners.loc), jcfg.voxel_size),
@@ -370,3 +381,210 @@ def test_config_carries_the_spatial_fields():
 def test_no_group_raises():
     with pytest.raises(RuntimeError, match="no torch.distributed process"):
         make_mesh(4, device="cpu")
+
+
+def test_production_sa_pairs(ranks):
+    """The production shape's SA pairs on four ranks, each rank's found
+    by its own brute force over its home spheres: the JAX package's
+    single-device set."""
+    ref = _jax_production()
+    for x in ranks.result("production"):
+        assert set(map(tuple, x["sa_pairs"])) == ref["sa"] != set()
+
+
+def _keyed(rows):
+    """Rows (idA, idB, persist, wildcards...) keyed by their pair."""
+    return {(int(r[0]), int(r[1])): r[2:] for r in rows}
+
+
+def _jax_rows(t):
+    """A JAX table's live rows: (idA, idB, persist, then each wildcard by
+    name), as float64 columns (the worker's ``table_rows``)."""
+    a = np.asarray(t.idA)
+    live = a >= 0
+    cols = [a, np.asarray(t.idB), np.asarray(t.persist)] + [
+        np.asarray(t.wildcards[k]) for k in sorted(t.wildcards)]
+    return np.stack([c[live].astype(np.float64) for c in cols], 1)
+
+
+def _hold_rows(got, want):
+    """Rows keyed by pair: the same pairs, persistency marks equal, the
+    wildcards within 2e-4 of the largest of the reference's."""
+    got, want = _keyed(got), _keyed(want)
+    assert set(got) == set(want) != set()
+    g = np.stack([got[k] for k in sorted(want)])
+    w = np.stack([want[k] for k in sorted(want)])
+    np.testing.assert_array_equal(g[:, 0], w[:, 0])
+    np.testing.assert_allclose(g[:, 1:], w[:, 1:], rtol=0,
+                               atol=2e-4 * np.abs(w[:, 1:]).max())
+    return w
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_crossing():
+    """The crossing case through the JAX package on one device: its
+    refresh, 4 steps, ``move_owners``, its refresh again."""
+    jcfg, js, jp, refresh, steps = _jax_programs(use_persistency=True)
+    fp = np.zeros(jp.family_persist.shape, bool)
+    fp[0, 255] = fp[255, 0] = True
+    jp = jp.replace(family_persist=jnp.asarray(fp))
+    j = refresh(js, jp)
+    assert int(j.overflow) == 0
+    j = steps(j, jp)
+    j = j.replace(owners=j.owners.replace(vox=jnp.asarray(
+        move_owners(np.asarray(j.owners.vox), jcfg.voxel_size))))
+    j = refresh(j, jp)
+    assert int(j.overflow) == 0
+    return dict(ss=_jax_rows(j.ss), sa=_jax_rows(j.sa),
+                lost=int(j.lost_contacts), wc=sorted(j.ss.wildcards))
+
+
+@pytest.mark.parametrize("kind", ["ss", "sa"])
+def test_crossing_matches_jax(ranks, kind):
+    """Every sphere crosses a slab boundary between two refreshes on four
+    ranks, the top layer lifts off the layer below and the bed off its
+    persistent floor contacts. The pairs, each row's carried wildcards
+    (within 2e-4 of the largest of each) and persistency mark, the
+    re-injected floor rows and the lost count are the JAX package's
+    single-device run's."""
+    ref = _jax_crossing()
+    for x in ranks.result("crossing"):
+        assert list(x["overflow"]) == [0, 0]
+        assert int(x["crossed"]) == int(x["n_spheres"])
+        assert list(x["wc"]) == ref["wc"]
+        w = _hold_rows(x[kind], ref[kind])
+        if kind == "sa":
+            # the floor rows, persistent, were re-injected: not detected
+            assert (w[:, 0] == 1).all()
+        else:
+            assert int(x["lost"]) == ref["lost"] > 0
+            assert not w[:, 0].any()
+
+
+def test_uneven_slabs_shrink_without_regrowth(ranks):
+    """The bed in two of four slabs, its home shards even: the first
+    slab's rank keeps more pairs than cap / D before it sends each home,
+    while each rank's home rows fit. Neither the refresh nor, after
+    ``Engine.maybe_shrink`` cuts cap_ss, the next one takes a growth; the
+    pair set is one process's."""
+    res = ranks.result("uneven")
+    homes = [int(x["home"]) for x in res]
+    for x in res:
+        cap, new = (int(c) for c in x["caps"])
+        assert int(x["slabs"][0]) >= 3 * sum(map(int, x["slabs"])) // 4
+        assert int(x["slab0_pairs"]) > new // WORLD >= max(homes)
+        assert list(x["grows"]) == [0, 0] and int(x["shrinks"]) == 1
+        assert new < cap and int(x["overflow"]) == 0
+        assert _set(*x["pairs"].T) == _set(*x["ref"].T) != set()
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_plate():
+    """The plate case through the JAX package on one device (the
+    production shape's programs, the plate lowered): its refresh, 4 steps
+    and refresh again."""
+    _, _, jp, refresh, steps = _jax_programs(with_mesh=True, plate_grid=2,
+                                             max_tri_span=8)
+    _, js, _ = _build_case(64, update_freq=4, spatial_refresh=True,
+                           with_mesh=True, plate_grid=2, max_tri_span=8,
+                           plate_z=PLATE_Z)
+    j = refresh(js, jp)
+    assert int(j.overflow) == 0
+    j = refresh(steps(j, jp), jp)
+    assert int(j.overflow) == 0
+    return {k: _jax_rows(getattr(j, k)) for k in ("ss", "st", "sa")}
+
+
+@pytest.mark.parametrize("kind", ["st", "ss", "sa"])
+def test_plate_rows_match_jax(ranks, kind):
+    """The plate on the bed's top layer on four ranks: each rank sweeps
+    its two triangles and sends the pairs home (all to the last rank,
+    which holds the top layer's spheres), fetching the triangles it
+    finalizes from their holders. Each table's rows with their carried
+    wildcards are the JAX package's single-device run's."""
+    ref = _jax_plate()
+    res = ranks.result("plate")
+    for x in res:
+        assert list(x["overflow"]) == [0, 0]
+        _hold_rows(x[kind], ref[kind])
+    if kind == "st":
+        assert [int(x["st_rows"]) for x in res] == [0, 0, 0, len(ref["st"])]
+
+
+@pytest.mark.parametrize("case", ["reshard", "reshard_odd"])
+def test_sharded_tables_carry_as_one_process(ranks, case):
+    """A whole state with live tables sharded, its SS table split by home
+    rank and its SA table whole on every rank (its capacity does not
+    divide), its spheres split or (63 clumps) whole: the mesh's next
+    refresh gives the rows, carried wildcards and lost count of the same
+    refresh in one process."""
+    for x in ranks.result(case):
+        assert bool(x["spheres_split"]) == (case == "reshard")
+        assert list(x["split"]) == ["ss", "st"]
+        assert list(x["after"]) == ["ss", "st", "sa"]
+        assert int(x["overflow"]) == 0
+        for kind in ("ss", "sa"):
+            got, want = _keyed(x[kind]), _keyed(x["ref_" + kind])
+            assert set(got) == set(want) != set()
+            for k in want:
+                np.testing.assert_array_equal(got[k], want[k])
+        assert int(x["lost"]) == int(x["ref_lost"])
+
+
+@pytest.mark.parametrize("tag", ["tri", "bed"])
+def test_refresh_sizes_are_per_rank(ranks, tag):
+    """``test_spatial_refresh_hlo_partitions_sweep``,
+    ``test_sharded_step_partitions_big_arrays`` and the partition half of
+    ``test_st_sweep_shards_over_mesh`` as the port can hold them: one
+    refresh's sizes on each of four ranks. The history carry's old and
+    new lists are cap / D rows (SS, ST, SA), the SA overlap matrix S / D
+    x A, the triangle world nodes T / D; no collective returns cap_ss
+    rows, and without triangles none returns a row for every sphere (the
+    gathers are of the owner records alone)."""
+    for x in ranks.result("sizes"):
+        cap_ss, cap_st, cap_sa = (int(c) for c in x[tag + "_caps"])
+        n_sph, n_tri, n_anal, n_own = (int(c) for c in x[tag + "_n"])
+        assert int(x[tag + "_overflow"]) == 0
+        caps = [cap_ss] + ([cap_st] if n_tri else []) + [cap_sa]
+        assert [tuple(c) for c in x[tag + "_carry"]] == [
+            (c // WORLD, c // WORLD) for c in caps]
+        assert [tuple(c) for c in x[tag + "_sa"]] == [
+            (n_sph // WORLD, n_anal)]
+        assert [tuple(c) for c in x[tag + "_nodes"]] == (
+            [(n_tri // WORLD, 3, 3)] if n_tri else [])
+        rows = [int(r) for r in x[tag + "_rows"]]
+        kinds = list(x[tag + "_kinds"])
+        assert max(rows) < cap_ss
+        gathered = {r for k, r in zip(kinds, rows) if k == "all_gather"}
+        assert gathered == ({n_own, n_sph} if n_tri else {n_own})
+        assert "all_to_all_v" in kinds
+
+
+@pytest.mark.parametrize("tag", ["tri", "bed"])
+def test_step_sizes_are_per_rank(ranks, tag):
+    """``test_sharded_step_partitions_big_arrays`` as the port can hold
+    it: after a mesh refresh each of four ranks holds n_owners / D owners
+    and cap / D rows of each table, and a step's only collectives are the
+    owner records' all-gather and the wrench's reduce-scatter onto the
+    rank's owners: no collective returns a table's rows."""
+    for x in ranks.result("sizes"):
+        caps = [int(c) for c in x[tag + "_caps"]]
+        n_own = int(x[tag + "_n"][3])
+        assert [int(c) for c in x[tag + "_local"]] == [
+            n_own // WORLD] + [c // WORLD for c in caps]
+        assert list(zip(x[tag + "_step_kinds"],
+                        (int(r) for r in x[tag + "_step_rows"]))) == [
+            ("all_gather", n_own), ("reduce_scatter", n_own // WORLD)]
+
+
+def test_local_shrink_matches_gather_shrink_split(ranks):
+    """``Engine.maybe_shrink`` on a mesh cuts each rank's block where it
+    lies; the whole table gathered, cut and split again gives the same
+    tensors on every rank."""
+    for x in ranks.result("shrink"):
+        cap_ss, cap_sa, new_ss, new_sa = (int(c) for c in x["caps"])
+        assert new_ss < cap_ss
+        for k in x:
+            if k.endswith(":local"):
+                np.testing.assert_array_equal(
+                    x[k], x[k[:-len(":local")] + ":split"], err_msg=k)

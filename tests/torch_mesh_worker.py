@@ -36,12 +36,16 @@ from dem_engine_tpu_torch.initializer import (  # noqa: E402
     make_state)
 from dem_engine_tpu_torch.models import HertzianForceModel  # noqa: E402
 from dem_engine_tpu_torch.ops import binning, voxel  # noqa: E402
+from dem_engine_tpu_torch import solver  # noqa: E402
+from dem_engine_tpu_torch.ops import history, narrowphase  # noqa: E402
 from dem_engine_tpu_torch.parallel import (  # noqa: E402
     find_pairs_ss_spatial, gather_state, make_mesh, shard_state,
     state_shardings)
+from dem_engine_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from dem_engine_tpu_torch.solver import (Engine, refresh_contacts,  # noqa
-                                         spatial_capx_auto)
-from dem_engine_tpu_torch.state import SolverConfig  # noqa: E402
+                                         run_steps, spatial_capx_auto)
+from dem_engine_tpu_torch.state import (SolverConfig,  # noqa: E402
+                                        state_tensors)
 
 CAP = 16384
 R = 0.01
@@ -255,12 +259,246 @@ def production(mesh):
                 st_rows=local.st.cap, cap_st=eng.cfg.cap_st,
                 st_count=int(out.st.count), ref_st_count=int(one.st.count),
                 ss_pairs=pairs(out.ss), ref_ss_pairs=pairs(one.ss),
-                st_pairs=pairs(out.st),
+                st_pairs=pairs(out.st), sa_pairs=pairs(out.sa),
                 tris_place=places["tris.nodes"],
                 owners_place=places["owners.vel"],
                 st_place=places["st.idA"], statics_place=places["st.statics"],
                 count_place=places["st.count"],
                 anals_place=places["anals.size"], step=int(out.step))
+
+
+def table_rows(table):
+    """A table's live rows: (idA, idB, persist, then each wildcard by
+    name), as float64 columns."""
+    live = table.idA >= 0
+    cols = [table.idA, table.idB, table.persist] + [
+        table.wildcards[k] for k in sorted(table.wildcards)]
+    return np.stack([c[live].double().numpy() for c in cols], 1)
+
+
+def move_owners(vox, voxel_size, n_clumps=64):
+    """The crossing case's move between its refreshes, in voxels: every
+    owner 8 R toward x = 0 (on four ranks each sphere crosses a slab
+    boundary), every clump 3 R up (off the floor) and the top layer of
+    clumps 4 R more (off the layer below)."""
+    r = cases.R
+    vox = vox.copy()
+    z = cases.bed_geometry(n_clumps)["pos"][:, 2]
+    vox[:, 0] -= int(round(8 * r / voxel_size))
+    vox[:n_clumps, 2] += int(round(3 * r / voxel_size))
+    vox[:n_clumps][z == z.max(), 2] += int(round(4 * r / voxel_size))
+    return vox
+
+
+def persist_floor(params):
+    """`params` with the contacts between the clumps (family 0) and the
+    floor (255) persistent, and no others."""
+    fp = torch.zeros_like(params.family_persist)
+    fp[0, 255] = fp[255, 0] = 1
+    return params.replace(family_persist=fp)
+
+
+def crossing(mesh):
+    """The bed (spatial refresh, the clump-floor contacts persistent, Crr
+    = 0): a refresh and 4 steps, ``move_owners``, a second refresh. Every
+    sphere changes slab, so each re-detected pair is found on one rank
+    and sent to its home on another; the top layer's contacts below are
+    lost and the floor's are re-injected. The tables after the second
+    refresh, with their wildcards, and the lost count."""
+    cfg, state, params = cases.build_case(64, update_freq=4, device="cpu")
+    cfg = dataclasses.replace(cfg, spatial_refresh=True,
+                              use_persistency=True)
+    params = persist_floor(no_rolling(params))
+    local = refresh_contacts(shard_state(state, mesh), params, cfg,
+                             mesh=mesh)
+    first = int(local.overflow)
+    local = run_steps(local, params, cfg, 4, mesh=mesh)
+    before = gather_state(local, mesh)
+    moved = move_owners(before.owners.vox.numpy(), cfg.voxel_size)
+    lo, hi = pmesh.home_range(before.owners.n, mesh.size, mesh.rank)
+    local = local.replace(owners=local.owners.replace(vox=torch.from_numpy(
+        moved[lo:hi] if local.layout.owners else moved)))
+    out = refresh_contacts(local, params, cfg, mesh=mesh)
+    got = gather_state(out, mesh)
+    slab = float(params.domain[0]) / mesh.size
+    x0 = solver.sphere_world_pos(before.owners, before.spheres,
+                                 cfg.voxel_size)[:, 0]
+    x1 = solver.sphere_world_pos(got.owners, got.spheres,
+                                 cfg.voxel_size)[:, 0]
+    return dict(overflow=[first, int(out.overflow)], ss=table_rows(got.ss),
+                sa=table_rows(got.sa), lost=int(out.lost_contacts),
+                crossed=int(((x0 // slab) != (x1 // slab)).sum()),
+                n_spheres=state.spheres.n, wc=sorted(got.ss.wildcards))
+
+
+def uneven(mesh):
+    """The bed moved as in ``crossing`` (its spheres in two of the four
+    slabs, its home shards as even as before) through Engine(cfg, mesh):
+    a refresh, ``Engine.maybe_shrink`` and a refresh at the shrunk
+    capacity, whose first slab keeps more than cap / D pairs. The spheres
+    a slab, the pairs within the first slab (which its rank keeps), the
+    rank's home rows, the capacities and growths, and the last refresh's
+    pairs against one process's refresh of the same state."""
+    cfg, state, params = cases.build_case(64, update_freq=4, device="cpu")
+    cfg = dataclasses.replace(cfg, spatial_refresh=True)
+    params = no_rolling(params)
+    state = state.replace(owners=state.owners.replace(vox=torch.from_numpy(
+        move_owners(state.owners.vox.numpy(), cfg.voxel_size))))
+    eng = Engine(cfg, mesh=mesh)
+    local = eng.refresh(shard_state(state, mesh), params)
+    grows = eng.timers["grows"]
+    cap = eng.cfg.cap_ss
+    out = eng.refresh(eng.maybe_shrink(local), params)
+    ref = refresh_contacts(state, params, eng.cfg)
+    x = solver.sphere_world_pos(state.owners, state.spheres,
+                                cfg.voxel_size)[:, 0]
+    slab = (x // (float(params.domain[0]) / mesh.size)).long()
+    live = ref.ss.idA >= 0
+    first = slab[ref.ss.idA[live].long()] + slab[ref.ss.idB[live].long()]
+    return dict(slabs=torch.bincount(slab.clamp(0, mesh.size - 1),
+                                     minlength=mesh.size).numpy(),
+                slab0_pairs=int((first == 0).sum()), home=int(out.ss.count), caps=[cap, eng.cfg.cap_ss],
+                grows=[grows, eng.timers["grows"]], shrinks=eng.shrinks,
+                overflow=int(out.overflow), pairs=pairs(gather_state(
+                    out, mesh).ss), ref=pairs(ref.ss))
+
+
+#: the plate of the production shape lowered onto the bed: the top
+#: layer's top spheres 0.02 R into it (as in test_st_sweep_shards_over_mesh)
+PLATE_Z = cases.R * (3 * 3.99 + 2 + 1.995 + 1.98)
+
+
+def plate(mesh):
+    """The production shape (8 triangles, 2 a rank) with its plate on the
+    top layer, spatial refresh on, Crr = 0: a refresh, 4 steps and a
+    refresh. Each rank sweeps its own triangles and sends the pairs to
+    the home of their spheres, all on the last rank. The tables' rows
+    with their wildcards, and the ST rows each rank holds."""
+    cfg, state, params = cases.build_case(
+        64, update_freq=4, with_mesh=True, plate_grid=2, plate_z=PLATE_Z,
+        device="cpu")
+    cfg = dataclasses.replace(cfg, spatial_refresh=True, max_tri_span=8)
+    params = no_rolling(params)
+    local = refresh_contacts(shard_state(state, mesh), params, cfg,
+                             mesh=mesh)
+    first = int(local.overflow)
+    local = run_steps(local, params, cfg, 4, mesh=mesh)
+    out = refresh_contacts(local, params, cfg, mesh=mesh)
+    got = gather_state(out, mesh)
+    return dict(overflow=[first, int(out.overflow)], ss=table_rows(got.ss),
+                st=table_rows(got.st), sa=table_rows(got.sa),
+                st_rows=int(out.st.count), lost=int(out.lost_contacts))
+
+
+def reshard(mesh, n_clumps=64):
+    """The bed refreshed and stepped 4 times in one process, then sharded:
+    its SS table splits by home rank, its SA table (258 rows, which do
+    not divide by four) stays whole on every rank. The mesh's next
+    refresh (SA at 260 rows) against the process's own next refresh: the
+    tables' rows with their wildcards and the lost count. With 63 clumps
+    the 189 spheres do not divide either: every rank holds them all and
+    runs the search over every sphere, keeping its home pairs."""
+    cfg, state, params = cases.build_case(n_clumps, update_freq=4,
+                                          device="cpu")
+    cfg = dataclasses.replace(cfg, spatial_refresh=True, cap_sa=258)
+    params = no_rolling(params)
+    one = run_steps(refresh_contacts(state, params, cfg), params, cfg, 4)
+    ref = refresh_contacts(one, params, cfg)
+    local = shard_state(one, mesh)
+    split = local.layout.tables
+    out = refresh_contacts(local, params,
+                           dataclasses.replace(cfg, cap_sa=260), mesh=mesh)
+    got = gather_state(out, mesh)
+    return dict(split=list(split), after=list(out.layout.tables),
+                spheres_split=local.layout.spheres,
+                overflow=int(out.overflow), ss=table_rows(got.ss),
+                ref_ss=table_rows(ref.ss), sa=table_rows(got.sa),
+                ref_sa=table_rows(ref.sa), lost=int(out.lost_contacts),
+                ref_lost=int(ref.lost_contacts))
+
+
+def sizes(mesh):
+    """One refresh of the production shape (its 8 triangles) and of the
+    bed without triangles, spatial refresh on, with each rank's sizes
+    recorded: the history carry's old and new lengths (SS, ST, SA in
+    turn), the SA overlap matrix, the triangle world nodes, and what
+    each collective returned (``Mesh.record``); then one step's
+    collectives and the rank's owner and table rows."""
+    out = {}
+    for tag, kw in (("tri", dict(with_mesh=True, plate_grid=2)),
+                    ("bed", {})):
+        cfg, state, params = cases.build_case(16 * mesh.size, update_freq=4,
+                                              device="cpu", **kw)
+        cfg = dataclasses.replace(cfg, spatial_refresh=True, max_tri_span=8)
+        local = shard_state(state, mesh)
+        seen = {"carry": [], "sa": [], "nodes": []}
+        saved = (history.carry_history, narrowphase.sphere_analytical,
+                 solver.tri_world_nodes)
+
+        def carry(old, a, *args, **kw):
+            seen["carry"].append((old.idA.shape[0], a.shape[0]))
+            return saved[0](old, a, *args, **kw)
+
+        def sa(*args, **kw):
+            res = saved[1](*args, **kw)
+            seen["sa"].append(tuple(res[0].shape))
+            return res
+
+        def nodes(*args, **kw):
+            res = saved[2](*args, **kw)
+            seen["nodes"].append(tuple(res.shape))
+            return res
+
+        history.carry_history, narrowphase.sphere_analytical = carry, sa
+        solver.tri_world_nodes = nodes
+        mesh.record = []
+        try:
+            res = refresh_contacts(local, params, cfg, mesh=mesh)
+        finally:
+            (history.carry_history, narrowphase.sphere_analytical,
+             solver.tri_world_nodes) = saved
+            calls, mesh.record = mesh.record, None
+        # and one step from there
+        mesh.record = []
+        run_steps(res, params, cfg, 1, mesh=mesh)
+        steps, mesh.record = mesh.record, None
+        out.update({f"{tag}_{k}": np.asarray(v) for k, v in seen.items()})
+        out.update({
+            f"{tag}_step_kinds": [c[0] for c in steps],
+            f"{tag}_step_rows": [c[1] for c in steps],
+            f"{tag}_local": [res.owners.n, res.ss.cap, res.st.cap,
+                             res.sa.cap]})
+        out.update({
+            f"{tag}_kinds": [c[0] for c in calls],
+            f"{tag}_rows": [c[1] for c in calls],
+            f"{tag}_caps": [cfg.cap_ss, cfg.cap_st, cfg.cap_sa],
+            f"{tag}_n": [state.spheres.n, state.tris.n, state.anals.n,
+                         state.owners.n],
+            f"{tag}_counts": [int(res.ss.count), int(res.st.count),
+                              int(res.sa.count)],
+            f"{tag}_overflow": int(res.overflow)})
+    return out
+
+
+def shrink(mesh):
+    """The bed after a mesh refresh, ``Engine.maybe_shrink`` (each rank
+    cuts its block where it lies) against the whole table gathered, cut
+    and split again; every tensor of both, and the capacities."""
+    cfg, state, params = cases.build_case(64, update_freq=4, device="cpu")
+    eng = Engine(dataclasses.replace(cfg, spatial_refresh=True), mesh=mesh)
+    local = eng.refresh(shard_state(state, mesh), params)
+    cut = eng.maybe_shrink(local)
+    lay = local.layout
+    out = dict(caps=[cfg.cap_ss, cfg.cap_sa, eng.cfg.cap_ss, eng.cfg.cap_sa])
+    for kind, cap in (("ss", eng.cfg.cap_ss), ("sa", eng.cfg.cap_sa)):
+        ref = pmesh.shard_table(
+            pmesh.gather_table(getattr(local, kind), mesh,
+                               lay.n_owners).shrunk(cap),
+            mesh, lay.n_owners, lay.n_spheres)
+        for (p, x), (_, y) in zip(state_tensors(getattr(cut, kind), kind),
+                                  state_tensors(ref, kind)):
+            out[p + ":local"], out[p + ":split"] = x.numpy(), y.numpy()
+    return out
 
 
 def tuners(mesh):
@@ -285,7 +523,14 @@ CASES = {**{k: (lambda m, k=k: search(m, k, tight=k == "thin"))
          "production": production,
          "production_replicated": lambda m: production(
              make_mesh(m.size, device="cpu", shard_owners=False)),
-         "tuners": tuners}
+         "tuners": tuners,
+         "crossing": crossing,
+         "uneven": uneven,
+         "plate": plate,
+         "reshard": reshard,
+         "reshard_odd": lambda m: reshard(m, 63),
+         "sizes": sizes,
+         "shrink": shrink}
 
 
 def main(rank, world, store, out):
