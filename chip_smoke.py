@@ -465,6 +465,13 @@ def read_counts():
     return {k: w.launches for k, w in counters().items()}
 
 
+def refreshes_run(eng):
+    """The refreshes `eng` ran, retries included (one pair search each),
+    its timers folded first: the caller has synchronised."""
+    t = eng.read_timers()
+    return t["refresh_n"] + t["retries"]
+
+
 def set_counts(counts):
     """Puts back the counts `read_counts` gave, so that the launches of a
     check in the middle of a path's run do not count."""
@@ -1241,7 +1248,7 @@ def physics(torch, state, voxel_size, tag, floor=2 * R_SPHERE):
 def phase_main(torch, n_clumps, k, warm, steps):
     eng, state, params = settled_case(torch, n_clumps, warm, update_freq=k)
     torch.cuda.synchronize()
-    attempts0 = eng.refresh_attempts
+    attempts0 = refreshes_run(eng)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
@@ -1249,7 +1256,7 @@ def phase_main(torch, n_clumps, k, warm, steps):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_counts()
-    refreshes = eng.refresh_attempts - attempts0
+    refreshes = refreshes_run(eng) - attempts0
     mem = torch.cuda.max_memory_allocated()
     ms_step = dt * 1e3 / steps
     print(f"[main] {n_clumps} clumps, K={k}, {steps} steps after {warm} "
@@ -1291,7 +1298,7 @@ def phase_poly(torch, n_clumps, k, warm, steps):
     if not eng.cfg.cd_two_class or state.tris.n != 2 * 16 * 16:
         fail("the poly bed is not two-class with its 512-triangle plate")
     torch.cuda.synchronize()
-    attempts0 = eng.refresh_attempts
+    attempts0 = refreshes_run(eng)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
@@ -1299,7 +1306,7 @@ def phase_poly(torch, n_clumps, k, warm, steps):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_counts()
-    refreshes = eng.refresh_attempts - attempts0
+    refreshes = refreshes_run(eng) - attempts0
     mem = torch.cuda.max_memory_allocated()
     print(f"[poly] {n_clumps} clumps ({state.spheres.n} spheres, "
           f"{state.tris.n} triangles), K={k}, {steps} steps after {warm} "
@@ -1500,14 +1507,14 @@ def phase_api_poly(torch, n_clumps, k, steps):
     if not cfg.cd_two_class or s.state.tris.n != 512:
         fail("the API's poly bed did not take the two-class CD and plate")
     s.DoDynamics(k * h)
-    attempts0 = s.engine.refresh_attempts
+    attempts0 = refreshes_run(s.engine)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     s.DoDynamics(steps * h)
     dt = time.perf_counter() - t0
     launches = read_counts()
-    refreshes = s.engine.refresh_attempts - attempts0
+    refreshes = refreshes_run(s.engine) - attempts0
     mem = torch.cuda.max_memory_allocated()
     print(f"[api] poly path: {s.GetNumClumps()} clumps, "
           f"{s.GetNumSpheres()} spheres, {s.state.tris.n} triangles of a "
@@ -1592,14 +1599,14 @@ def phase_api(torch, n_clumps, k, steps):
         torch.cuda.synchronize()
         t_init = time.perf_counter() - t0
         s.DoDynamics(k * h)  # one warm-up chunk
-        attempts0 = s.engine.refresh_attempts
+        attempts0 = refreshes_run(s.engine)
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
         s.DoDynamics(steps * h)  # synchronises before it returns
         dt = time.perf_counter() - t0
         launches = read_counts()
-        refreshes = s.engine.refresh_attempts - attempts0
+        refreshes = refreshes_run(s.engine) - attempts0
         mem = torch.cuda.max_memory_allocated()
         cfg = s.engine.cfg
         st = s.state
@@ -1610,7 +1617,8 @@ def phase_api(torch, n_clumps, k, steps):
               f"{mem / 2**30:.2f} GiB; ss.count {int(st.ss.count)} "
               f"sa.count {int(st.sa.count)}; caps after maybe_shrink "
               f"cap_ss {cfg.cap_ss} cap_sa {cfg.cap_sa}, uniq_cap "
-              f"{cfg.uniq_cap} ({s.engine.shrinks} shrinks)", flush=True)
+              f"{cfg.uniq_cap} ({s.engine.timers['shrinks']} shrinks)",
+              flush=True)
         on = cfg.uniq_cap > 0
         expect = {"A": 2 * steps, "B": 0 if on else steps, "B-extras": 0,
                   "B-ub": steps if on else 0, "C": refreshes, "D": 0,
@@ -1746,14 +1754,14 @@ def phase_families(torch, n_clumps, k, steps):
     s.DoDynamics(h)
     got3 = int((s.GetOwnerFamily() == 3).sum())
     s.DoDynamics((k - 1) * h)
-    attempts0 = s.engine.refresh_attempts
+    attempts0 = refreshes_run(s.engine)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     s.DoDynamics(steps * h)
     dt = time.perf_counter() - t0
     launches = read_counts()
-    refreshes = s.engine.refresh_attempts - attempts0
+    refreshes = refreshes_run(s.engine) - attempts0
     mem = torch.cuda.max_memory_allocated()
     # K steps under sync-debug "error"; the refresh reads its overflow
     # word by design, so it runs before the window
@@ -2408,14 +2416,14 @@ def phase_custom(torch, n_clumps, k, steps):
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     s.DoDynamics(k * h)
-    attempts0 = s.engine.refresh_attempts
+    attempts0 = refreshes_run(s.engine)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     s.DoDynamics(steps * h)
     dt = time.perf_counter() - t0
     launches = read_counts()
-    refreshes = s.engine.refresh_attempts - attempts0
+    refreshes = refreshes_run(s.engine) - attempts0
     mem = torch.cuda.max_memory_allocated()
     st, cfg = s.state, s.engine.cfg
     print(f"[custom] {s.GetNumClumps()} clumps, cohesion model "
@@ -2635,7 +2643,7 @@ def phase_bonded(torch, side, k, steps):
     del q, fa, fb, pa, pb, tab, found
 
     chunks = steps // k
-    attempts0 = s.engine.refresh_attempts
+    attempts0 = refreshes_run(s.engine)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     dt, counts, reinjected = 0.0, [], []
@@ -2649,7 +2657,7 @@ def phase_bonded(torch, side, k, steps):
         reinjected.append(int(((t.idA >= 0) & torch.isin(keys, cut_keys)
                                ).sum()))
     launches = read_counts()
-    refreshes = s.engine.refresh_attempts - attempts0
+    refreshes = refreshes_run(s.engine) - attempts0
     mem = torch.cuda.max_memory_allocated()
     st = s.state
     n = int(st.ss.count)
@@ -2917,14 +2925,14 @@ def phase_rest(torch, n_clumps, k, tune_steps=3200, steps=250,
     counts = (s.GetNumOwners() - n0, s.GetNumSpheres() - s0,
               s.GetNumClumps() - c0)
     events.clear()
-    grows0, attempts0 = eng.timers["grows"], eng.refresh_attempts
+    grows0, attempts0 = eng.timers["grows"], refreshes_run(eng)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     s.DoDynamics(insert_steps * h)
     dt = time.perf_counter() - t0
     launches = read_counts()
-    refreshes = eng.refresh_attempts - attempts0
+    refreshes = refreshes_run(eng) - attempts0
     mem = torch.cuda.max_memory_allocated()
     grows = eng.timers["grows"] - grows0
     logged = [m for lvl, m in events if lvl == "STEP_METRIC"
@@ -3697,13 +3705,13 @@ def phase_mesh(torch, n_clumps, k, warm, steps, card):
                           ("mesh", eng, local, mesh)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        a0 = e.refresh_attempts
+        a0 = refreshes_run(e)
         reset_counts()
         t0 = time.perf_counter()
         st = e.advance(st, params, steps, k)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts, refreshes = read_counts(), e.refresh_attempts - a0
+        counts, refreshes = read_counts(), refreshes_run(e) - a0
         mem = torch.cuda.max_memory_allocated()
         # one refresh's peak beyond what is allocated before it (the
         # state and the retained tables)

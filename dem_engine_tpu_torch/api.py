@@ -64,7 +64,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from . import defines
+from . import defines, tracing
 from .defines import (
     DEFAULT_FAMILY,
     DEFAULT_UPDATE_FREQ,
@@ -663,7 +663,6 @@ class DEMSolver:
         self._volume_dev = None
         # statistics
         self._timers = {"total": 0.0}
-        self._n_refreshes = 0
         self._n_steps_done = 0
         self._anomalies: List[str] = []
         self._stage_timings = None
@@ -2003,28 +2002,40 @@ class DEMSolver:
             raise RuntimeError("call Initialize() first")
         n_steps = int(round(duration / self._h))
         t0 = _time.perf_counter()
-        if self._next_step_acc and n_steps > 1:
-            # one-shot next-step accelerations apply to the first step only
-            self.state = self.engine.advance(self.state, self.params, 1,
-                                             self._update_freq)
-            self._clear_next_step_acc()
-            n_steps -= 1
-        self.state = self.engine.advance(self.state, self.params, n_steps,
-                                         self._update_freq)
-        if self._next_step_acc:
-            self._clear_next_step_acc()
-        self._sync()
-        # the engine's chunk timers are complete after the sync
-        self.engine.read_timers()
-        self._timers["total"] += _time.perf_counter() - t0
-        self._n_steps_done += n_steps
-        self._n_refreshes += -(-n_steps // self._update_freq)
-        self._check_lost_contacts()
+        with tracing.frame():
+            if self._next_step_acc and n_steps > 1:
+                # one-shot next-step accelerations apply to the first
+                # step only
+                self.state = self.engine.advance(self.state, self.params,
+                                                 1, self._update_freq)
+                self._clear_next_step_acc()
+                n_steps -= 1
+            self.state = self.engine.advance(self.state, self.params,
+                                             n_steps, self._update_freq)
+            if self._next_step_acc:
+                self._clear_next_step_acc()
+            with tracing.span("frame.tail"):
+                with tracing.waited(self.engine.timers, "frame"):
+                    self._sync()
+                # the engine's chunk timers are complete after the sync
+                self.engine.read_timers()
+                self._timers["total"] += _time.perf_counter() - t0
+                self._n_steps_done += n_steps
+                self._check_lost_contacts()
+
+    @property
+    def _n_refreshes(self) -> int:
+        """The CD refreshes the engine ran since ClearTimingStats, retries
+        included, as far as its timers are folded (all of them after
+        DoDynamics)."""
+        t = self.engine.timers
+        return t["refresh_n"] + t["retries"]
 
     def _check_lost_contacts(self):
         """Contacts that carried friction history but were not
         re-detected at a refresh lost it silently: report them."""
-        lost = int(self.state.lost_contacts)
+        with tracing.waited(self.engine.timers, "lost"):
+            lost = int(self.state.lost_contacts)
         if lost > self._lost_reported:
             msg = (f"{lost - self._lost_reported} contact(s) with live "
                    f"history were not re-detected at a CD refresh and lost "
@@ -2653,24 +2664,34 @@ class DEMSolver:
     def ShowTimingStats(self):
         """The DoDynamics totals and the engine's chunk timers: refreshes
         and steps timed by CUDA events on the card (the host clock on the
-        CPU), growths, shrinks and refresh retries, the bin factor, and
-        with a tuner on its measured ms/step per rung; then the last
-        ProfileStageTimings table."""
+        CPU), the refreshes' stage sums, the host round trips by site,
+        growths, shrinks, shrink checks and refresh retries, the bin
+        factor, and with a tuner on its measured ms/step per rung; then
+        the last ProfileStageTimings table. ``tracing.frames()`` holds
+        each frame's host spans."""
         t = self.engine.read_timers()
         step_per = t["steps_s"] / t["steps_n"] * 1e3 if t["steps_n"] else 0.0
         refresh_per = (t["refresh_s"] / t["refresh_n"] * 1e3
                        if t["refresh_n"] else 0.0)
         clock = "CUDA events" if self.device.type == "cuda" else "host clock"
+        stages = " ".join(
+            f"{s}={t[f'refresh_{s}_s']:.3f}s"
+            for s in [s for s, _, _ in tracing.REFRESH_STAGES] + ["sync"])
+        trips = " ".join(f"{x}={t[f'sync_{x}_n']}/{t[f'sync_{x}_s']:.3f}s"
+                         for x in tracing.SYNC_SITES if t[f"sync_{x}_n"])
         print(
             f"[timing] total wall {self._timers['total']:.3f}s over "
             f"{self._n_steps_done} steps, {self._n_refreshes} CD refreshes\n"
             f"  CD refresh        : {t['refresh_s']:8.3f}s"
             f"  ({t['refresh_n']} refreshes, {refresh_per:.1f} ms each; "
             f"{clock})\n"
+            f"  refresh stages    : {stages} ({clock})\n"
             f"  dynamics          : {t['steps_s']:8.3f}s"
             f"  ({t['steps_n']} steps, {step_per:.3f} ms/step; {clock})\n"
+            f"  host round trips  : {trips or 'none'} (count/host seconds)\n"
             f"  engine events     : grows={t['grows']} "
             f"shrinks={t['shrinks']} retries={t['retries']} "
+            f"shrink_checks={t['shrink_checks']} "
             f"bin_factor={self.engine.bin_factor:.2f}"
             + (f"\n  adaptive CD freq  : K={self.engine.active_freq} "
                f"measured {self._perf_ms(self.engine._k_perf)} ms/step"
@@ -2705,7 +2726,6 @@ class DEMSolver:
     def ClearTimingStats(self):
         self._timers = {"total": 0.0}
         self._n_steps_done = 0
-        self._n_refreshes = 0
         self.engine.clear_timers()
 
     def ShowAnomalies(self):

@@ -33,8 +33,8 @@ from . import binning
 def find_pairs_ss(pos, reach, owner, family, family_mask, bin_size, nb,
                   cap, member=None, mark=None):
     """Returns (idA, idB, count, table). `mark`, if given, is called with
-    "table" between the sorted table and the search (the stage timers of
-    ``profiling.profile_stages``)."""
+    "table" between the sorted table and the search (``tracing``'s
+    refresh stages)."""
     S = pos.shape[0]
     tab = binning.build_sphere_table(pos, reach, owner, family, bin_size,
                                      nb, max(S, 1), member=member)

@@ -116,14 +116,16 @@ def unpack(rec):
             ints[:, 2], reach > _INVALID_REACH * 0.5)
 
 
-def search_received(rec, family_mask, bin_size, nb, c_cap: int):
+def search_received(rec, family_mask, bin_size, nb, c_cap: int,
+                    mark=None):
     """Kernel C (its plain version on the CPU) over the received rows on
-    the global grid, the unused rows left out as non-members. Returns
-    (idA, idB, count, sorted table) in receive-buffer rows."""
+    the global grid, the unused rows left out as non-members; `mark` as
+    ``sweep.find_pairs_ss`` takes it. Returns (idA, idB, count, sorted
+    table) in receive-buffer rows."""
     pos, reach, owner, family, _, valid = unpack(rec)
     return sweep.find_pairs_ss(
         pos, reach, owner, torch.where(valid, family, 0), family_mask,
-        bin_size, nb, c_cap, member=valid)
+        bin_size, nb, c_cap, member=valid, mark=mark)
 
 
 def keep_resident(rec, resident, a, b, bin_size, nb, cap_loc: int):
@@ -151,7 +153,7 @@ def keep_resident(rec, resident, a, b, bin_size, nb, cap_loc: int):
 
 def find_pairs_ss_spatial(pos, reach, owner, family, family_mask, bin_size,
                           nb, domain, cap: int, mesh, capx: int,
-                          keep_cap: int | None = None):
+                          keep_cap: int | None = None, mark=None):
     """The SS pairs of the spheres whose index shard each rank passes
     (pos, reach, owner, family: this rank's rows of the global arrays,
     world axes), searched by slab over `mesh`.
@@ -162,7 +164,8 @@ def find_pairs_ss_spatial(pos, reach, owner, family, family_mask, bin_size,
     cap + 1 where a rank kept more than its rows (the caller's OVF_SS_CAP
     growth then takes it); the largest bin occupancy; and whether any
     rank's buckets or kernel C's table over its received rows overflowed
-    (the caller grows capx)."""
+    (the caller grows capx). `mark`, if given, is called with "table"
+    after the received rows' sorted table."""
     d = mesh.size
     if cap % d:
         raise ValueError(f"cap {cap} does not divide by {d} ranks")
@@ -170,7 +173,8 @@ def find_pairs_ss_spatial(pos, reach, owner, family, family_mask, bin_size,
     rec, resident, bucket_ovf = exchange(pos, reach, owner, family,
                                          bin_size, domain, mesh, capx)
     c_cap = received_cap(cap, pos.shape[0] * d, rec.shape[0])
-    a, b, n_c, tab = search_received(rec, family_mask, bin_size, nb, c_cap)
+    a, b, n_c, tab = search_received(rec, family_mask, bin_size, nb, c_cap,
+                                     mark)
     idA, idB, kept = keep_resident(rec, resident, a, b, bin_size, nb,
                                    cap_loc)
     flags = mesh.all_max(torch.stack([

@@ -2,13 +2,14 @@
 JAX package's ``profiling`` module.
 
 The port runs eagerly, so a stage has real boundaries: ``profile_stages``
-passes a `mark` callable to ``refresh_contacts`` (and through it to
+passes ``tracing``'s marker to ``refresh_contacts`` (and through it to
 ``sweep.find_pairs_ss``, between the sorted sphere table and kernel C)
 and to ``dynamics_step``, which record a CUDA event at each boundary on
 the card (the host clock on the CPU). Each of `reps` runs starts from
 the same state; the outputs are thrown away, so the solver's state is
 left as it was (neither function writes into a tensor of its input).
-One synchronisation at the end reads every event.
+One synchronisation at the end reads every event. ``Engine`` times the
+same refresh stages in every chunk it runs (``tracing``).
 
 Stages, in milliseconds, the mean over the runs:
   * single-grid CD: "Discretize domain" (margins, grid, sorted table),
@@ -32,8 +33,11 @@ import torch
 from .defines import I
 from .models.prescriptions import static_tables
 from .ops.forces import fused_ss
-from .solver import dynamics_step, mark_seconds, refresh_contacts, time_mark
+from .solver import dynamics_step, refresh_contacts
+from .tracing import Marker, mark_seconds
 
+#: the JAX package's titles of ``tracing.REFRESH_STAGES``' bin, search,
+#: carry and finalize, between the same marks
 REFRESH_STAGES = (("Discretize domain", "start", "table"),
                   ("Find contact pairs", "table", "pairs"),
                   ("Build history map", "pairs", "history"),
@@ -42,14 +46,9 @@ FUSED_SUFFIX = " (+reduction, fused kernel)"
 
 
 def _marked(device):
-    """A list of (name, mark) and the callable that appends to it."""
+    """A list of (name, mark) and the marker that appends to it."""
     marks = []
-
-    def mark(name):
-        marks.append((name, time_mark(device)))
-
-    mark("start")
-    return marks, mark
+    return marks, Marker(device, marks)
 
 
 def _span(marks, a, b):

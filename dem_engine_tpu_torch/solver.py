@@ -34,24 +34,26 @@ Every host decision reads values that are equal on every rank (the
 reduced overflow word, counts reduced over the ranks, rank 0's tuner
 moves), so the ranks call the same collectives.
 
-Timers: ``Engine.advance`` marks each chunk's refresh and its K steps
-with CUDA events on the card (the host clock on the CPU) and folds them
-into ``Engine.timers`` once they are complete: after the next chunk's
+Timers (``tracing``): ``Engine.advance`` marks each chunk's refresh, the
+refresh's stages on every attempt, and its K steps with CUDA events on
+the card (the host clock on the CPU) and folds them into
+``Engine.timers`` once they are complete: after the next chunk's
 refresh, which reads its overflow word anyway, or when the caller has
 synchronised (``read_timers``). The K-step window reads nothing back.
+Each host round trip of the loop is counted and timed by site, and each
+part of a chunk is a host span in ``tracing``'s ring.
 ``refresh_contacts`` and ``dynamics_step`` take an optional `mark`
-callable that they call with a name at their stage boundaries
-(``profiling.profile_stages``).
+callable that they call with a name at their stage boundaries.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import sys
-import time
 
 import torch
 
+from . import tracing
 from .defines import F, I
 from .models.prescriptions import PrescriptionTables, static_tables
 from .ops import binning, forces, history, integrator, narrowphase, quat
@@ -77,6 +79,7 @@ from .state import (
     SimState,
     SolverConfig,
 )
+from .tracing import mark_seconds
 
 _GROWTH = 1.6
 _CAP_OVF = (OVF_SS_CAP | OVF_ST_CAP | OVF_SA_CAP | OVF_TRI_BINS
@@ -91,23 +94,6 @@ def _norm(v):
 
 def _no_mark(name):
     pass
-
-
-def time_mark(device):
-    """A timer mark: a recorded CUDA event on the card, the host clock
-    on the CPU."""
-    if device.type == "cuda":
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
-    return time.perf_counter()
-
-
-def mark_seconds(a, b) -> float:
-    """Seconds between two complete marks of ``time_mark``."""
-    if isinstance(a, float):
-        return b - a
-    return a.elapsed_time(b) * 1e-3
 
 
 # ---------------------------------------------------------------------------
@@ -267,15 +253,16 @@ def cross_pairs(q, tc, small, cfg, n_spheres, base=None, outs=None):
     return idA, idB, n, torch.where(occ_x > cfg.cross_mpb, OVF_XOCC, 0)
 
 
-def two_class_pairs(q, small, params, cfg, n_spheres):
+def two_class_pairs(q, small, params, cfg, n_spheres, mark=_no_mark):
     """The SS pairs of the two-class CD: kernel C twice, on the member
     tables of ``two_class_inputs``, and ``cross_pairs`` between. The list
     is the small-small pairs, then the large-large and small-large ones.
-    Returns (idA, idB, count, small table, overflow bits: OVF_XOCC,
-    OVF_LCAP)."""
+    `mark` is called with "table" after the member tables. Returns (idA,
+    idB, count, small table, overflow bits: OVF_XOCC, OVF_LCAP)."""
     cap = cfg.cap_ss
     mask = q["family_mask"]
     tc = two_class_inputs(q, small, params, cfg, n_spheres)
+    mark("table")
     pos_c, reach_c, own_c, fam_c, bs_l, nb_l, live_l = tc["large"]
     idA, idB, n_ll, _ = sweep.find_pairs_ss(
         pos_c, reach_c, own_c, fam_c, mask, bs_l, nb_l, cap, member=live_l)
@@ -369,7 +356,7 @@ def _ss_pairs(q, params, cfg, mark):
     overflow bits)."""
     if cfg.cd_two_class:
         return two_class_pairs(q, q["radius"] <= params.cls_thr, params,
-                               cfg, q["reach"].shape[0])
+                               cfg, q["reach"].shape[0], mark)
     idA, idB, n_ss, tab = sweep.find_pairs_ss(
         q["pos_cd"], q["reach"], q["owner"], q["family"],
         params.family_mask, q["bin_size"], q["nb_cd"], cfg.cap_ss,
@@ -495,11 +482,13 @@ def _refresh(state, params, cfg, mark):
 def refresh_contacts(state: SimState, params: RuntimeParams,
                      cfg: SolverConfig, mark=None, mesh=None) -> SimState:
     """One refresh of the contact tables. `mark`, if given, is called
-    with "table", "pairs", "history" and "finalize" at the single-grid SS
-    search's stage boundaries (after the sorted table, kernel C, the
-    history carry and the SS table's finalize). With `mesh`, `state` is
-    this rank's shard (``parallel.mesh.shard_state``): see
-    ``_refresh_on_mesh``."""
+    with "table", "pairs", "history" and "finalize" at the SS search's
+    stage boundaries (after the sorted table, or the two-class member
+    tables, or the spatial search's table of its received rows; after
+    kernel C and the cross search; after the SS history carry; after the
+    SS table's finalize), on every path (``tracing.REFRESH_STAGES``).
+    With `mesh`, `state` is this rank's shard
+    (``parallel.mesh.shard_state``): see ``_refresh_on_mesh``."""
     mark = mark or _no_mark
     if mesh is not None:
         return _refresh_on_mesh(state, params, cfg, mark, mesh)
@@ -646,7 +635,7 @@ def _refresh_on_mesh(state, params, cfg, mark, mesh):
             q["pos"], q["reach"], q["owner"], q["family"],
             params.family_mask, q["bin_size"], q["nb_cd"], params.domain,
             cfg.cap_ss, mesh, capx,
-            keep_cap=received_cap(cfg.cap_ss, n_sph, d * capx))
+            keep_cap=received_cap(cfg.cap_ss, n_sph, d * capx), mark=mark)
         overflow = torch.where(bucket_ovf, OVF_SPATIAL_BUCKET, 0).to(I)
         if n_tri:
             tab = binning.build_sphere_table(
@@ -937,20 +926,14 @@ class Engine:
         #: whether it re-tuned, the steps not yet enqueued when it was
         #: measured, and the K (active_freq) and bin factor set after it
         self.blocks: list = []
-        #: refreshes run, retries after a capacity growth included (one
-        #: pair-search launch each)
-        self.refresh_attempts = 0
-        self.shrinks = 0
-        #: clearable statistics: seconds and counts of the chunks' timed
-        #: refreshes and steps, growths, shrinks and refresh retries
-        self.timers = self.zero_timers()
+        #: clearable statistics, flat scalars (``tracing.zero_timers``):
+        #: seconds and counts of the chunks' timed refreshes and steps,
+        #: the refreshes' stages, growths, shrinks, shrink checks, refresh
+        #: retries (refreshes run: refresh_n + retries), and the host round
+        #: trips by site
+        self.timers = tracing.zero_timers()
         self._pending = []  # marks of chunks not yet folded in
         self._remaining = 0  # steps the running advance has not enqueued
-
-    @staticmethod
-    def zero_timers():
-        return {"refresh_s": 0.0, "refresh_n": 0, "steps_s": 0.0,
-                "steps_n": 0, "grows": 0, "shrinks": 0, "retries": 0}
 
     def _emit(self, level, msg):
         if self.log is not None:
@@ -968,9 +951,10 @@ class Engine:
     def _count(self, state, kind) -> int:
         """A table's live count over every rank."""
         t = getattr(state, kind)
-        if self.mesh is not None and kind in state.layout.tables:
-            return int(self.mesh.all_sum(t.count))
-        return int(t.count)
+        with tracing.waited(self.timers, "count"):
+            if self.mesh is not None and kind in state.layout.tables:
+                return int(self.mesh.all_sum(t.count))
+            return int(t.count)
 
     def _config_changed(self):
         """What the JAX engine's rebuild after a change of capacities or
@@ -982,13 +966,24 @@ class Engine:
     def read_timers(self) -> dict:
         """Fold every pending chunk's marks into ``timers``, and each
         block whose chunks are all folded into the tuners. On the card
-        this waits for the last chunk's end mark: no wait where the caller
-        has synchronised already, as DoDynamics and a refresh have."""
-        if self._pending and not isinstance(self._pending[-1][2], float):
-            self._pending[-1][2].synchronize()
+        this waits for the last chunk's end mark (a `fold` round trip): no
+        wait where the caller has synchronised already, as DoDynamics
+        has."""
+        if self._pending:
+            with tracing.waited(self.timers, "fold"):
+                last = self._pending[-1][2]
+                if not isinstance(last, float):
+                    last.synchronize()
+        self._fold()
+        return self.timers
+
+    def _fold(self):
+        """``read_timers`` with no wait: every pending mark is complete
+        (a refresh has read its overflow word since)."""
         pending, self._pending = self._pending, []
-        for r0, s0, s1, kk, blk in pending:
-            rs, ss = mark_seconds(r0, s0), mark_seconds(s0, s1)
+        for marks, s0, s1, kk, blk in pending:
+            rs, ss = mark_seconds(marks[0][1], s0), mark_seconds(s0, s1)
+            tracing.fold_stages(self.timers, marks, s0)
             self.timers["refresh_s"] += rs
             self.timers["steps_s"] += ss
             self.timers["refresh_n"] += 1
@@ -998,11 +993,10 @@ class Engine:
                 blk["folded"] += 1
                 if blk["folded"] == blk["chunks"]:
                     self._measure(blk)
-        return self.timers
 
     def clear_timers(self):
         self._pending = []
-        self.timers = self.zero_timers()
+        self.timers = tracing.zero_timers()
 
     def _measure(self, blk):
         """A block's seconds per step into the tuners, then, with them on,
@@ -1020,9 +1014,10 @@ class Engine:
             self._tune(rec)
         if self.mesh is not None and (self.auto_freq or self.auto_bin):
             # each rank timed its own blocks: all take rank 0's move
-            k, bf = self.mesh.broadcast(torch.tensor(
-                [float(self.active_freq or 0), self.bin_factor],
-                dtype=torch.float64, device=self.mesh.device)).tolist()
+            with tracing.waited(self.timers, "tune"):
+                k, bf = self.mesh.broadcast(torch.tensor(
+                    [float(self.active_freq or 0), self.bin_factor],
+                    dtype=torch.float64, device=self.mesh.device)).tolist()
             self.active_freq, self.bin_factor = int(k) or None, bf
         # what the next block to start runs at
         rec["k_next"], rec["bin_next"] = self.active_freq, self.bin_factor
@@ -1165,28 +1160,29 @@ class Engine:
         jitter keeps the chosen capacity; on a mesh the count is D times
         the fullest rank's): every per-row cost of a step scales with
         capacity, not count."""
-        cfg = self.cfg
-        changes = {}
-        for name, cap in (("ss", cfg.cap_ss), ("st", cfg.cap_st),
-                          ("sa", cfg.cap_sa)):
-            cnt = self._rows_needed(state, name)
-            quantum = 512 if name == "ss" else 256
-            quantum = max(quantum, 1 << max(0, cnt.bit_length() - 5))
-            need = self._divisible(
-                max(64, -(-int(cnt * 1.25 + 64) // quantum) * quantum))
-            # 1.4: a growth lands at 1.6x the overflowed capacity, which
-            # must not shrink again at once
-            if cap > 1.4 * need:
-                changes["cap_" + name] = need
-        if not changes:
-            return state
-        self.shrinks += 1
-        self.timers["shrinks"] += 1
-        self.cfg = dataclasses.replace(cfg, **changes)
-        self._config_changed()
-        return state.replace(**{
-            kind: self._shrunk(state, kind, getattr(self.cfg, name))
-            for kind, name in _CAPS.items()})
+        with tracing.span("shrink"):
+            cfg = self.cfg
+            self.timers["shrink_checks"] += 1
+            with tracing.waited(self.timers, "shrink", 3):
+                counts = [self._rows_needed(state, kind) for kind in _CAPS]
+            changes = {}
+            for (kind, name), cnt in zip(_CAPS.items(), counts):
+                quantum = 512 if kind == "ss" else 256
+                quantum = max(quantum, 1 << max(0, cnt.bit_length() - 5))
+                need = self._divisible(
+                    max(64, -(-int(cnt * 1.25 + 64) // quantum) * quantum))
+                # 1.4: a growth lands at 1.6x the overflowed capacity,
+                # which must not shrink again at once
+                if getattr(cfg, name) > 1.4 * need:
+                    changes[name] = need
+            if not changes:
+                return state
+            self.timers["shrinks"] += 1
+            self.cfg = dataclasses.replace(cfg, **changes)
+            self._config_changed()
+            return state.replace(**{
+                kind: self._shrunk(state, kind, getattr(self.cfg, name))
+                for kind, name in _CAPS.items()})
 
     def _rows_needed(self, state, kind) -> int:
         """The live rows a table's capacity must hold: its count, or on a
@@ -1205,21 +1201,30 @@ class Engine:
             return t.shrunk(cap)
         return t.shrunk(cap // self.mesh.size)
 
-    def refresh(self, state: SimState, params: RuntimeParams) -> SimState:
+    def refresh(self, state: SimState, params: RuntimeParams,
+                marks=None) -> SimState:
         """Refresh with capacity growth, retried from the retained
-        pre-refresh state."""
-        for attempt in range(16):
-            self.refresh_attempts += 1
-            if attempt:
-                self.timers["retries"] += 1
-            new_state = refresh_contacts(state, params, self.cfg,
-                                         mesh=self.mesh)
-            ovf = int(new_state.overflow)
-            if not ovf & _CAP_OVF:
-                self._check_vel(new_state, ovf)
-                return new_state
-            self.timers["grows"] += 1
-            state = self.grow_for(state, ovf)
+        pre-refresh state. Each attempt's stages are marked
+        (``tracing.Marker``, "start" to "end", then its overflow read):
+        into `marks`, if given."""
+        marks = [] if marks is None else marks
+        with tracing.span("refresh"):
+            for attempt in range(16):
+                if attempt:
+                    self.timers["retries"] += 1
+                mark = tracing.Marker(state.device, marks,
+                                      tracing.REFRESH_SPANS)
+                new_state = refresh_contacts(state, params, self.cfg,
+                                             mark=mark, mesh=self.mesh)
+                mark("end")
+                with tracing.waited(self.timers, "refresh"):
+                    ovf = int(new_state.overflow)
+                if not ovf & _CAP_OVF:
+                    self._check_vel(new_state, ovf)
+                    return new_state
+                self.timers["grows"] += 1
+                with tracing.span("grow"):
+                    state = self.grow_for(state, ovf)
         raise RuntimeError("contact capacity growth did not converge")
 
     def advance(self, state: SimState, params: RuntimeParams,
@@ -1232,7 +1237,8 @@ class Engine:
         opens block 1, 64 and every 512th, and in the remainder after
         that of its chunk 1, 64 and every 512th. Each chunk's refresh and
         steps are timed (module docstring)."""
-        h = float(params.h)
+        with tracing.waited(self.timers, "h"):
+            h = float(params.h)
         done = 0
         blocks = 0
         split = 0
@@ -1268,14 +1274,17 @@ class Engine:
         the K-step window. `blk` is the measured block the chunk belongs
         to, or None."""
         dev = state.device
-        params_k = params.replace(
-            max_drift=torch.tensor(kk, dtype=I, device=dev),
-            bin_factor=torch.tensor(bin_factor, dtype=F, device=dev))
-        marks = [time_mark(dev)]
-        state = self.refresh(state, params_k)
-        # the refresh read its overflow word: earlier chunks' marks are
-        # complete
-        self.read_timers()
+        with tracing.span("chunk.setup"), tracing.waited(self.timers,
+                                                         "params", 2):
+            params_k = params.replace(
+                max_drift=torch.tensor(kk, dtype=I, device=dev),
+                bin_factor=torch.tensor(bin_factor, dtype=F, device=dev))
+        marks = []
+        state = self.refresh(state, params_k, marks)
+        with tracing.span("chunk.fold"):
+            # the refresh read its overflow word: earlier chunks' marks
+            # are complete
+            self._fold()
         if blk is not None and "ss_count" not in blk:
             blk["ss_count"] = self._count(state, "ss")
             blk["cap_ss"] = self.cfg.cap_ss
@@ -1284,18 +1293,21 @@ class Engine:
         if blk is not None:
             # growths of the block's refreshes so far
             blk["grows"] = self.timers["grows"] - blk["grows0"]
-        state = self.timed_steps(state, params_k, kk, h, marks)
-        self._pending.append((*marks, kk, blk))
+        steps = []
+        state = self.timed_steps(state, params_k, kk, h, steps)
+        self._pending.append((marks, *steps, kk, blk))
         return state
 
     def timed_steps(self, state, params, n_steps, h, marks):
         """A chunk's K-step window: `n_steps` steps between two timer
         marks, appended to `marks`. Nothing in it reads back from the
         device."""
-        marks.append(time_mark(state.device))
+        marks.append(tracing.time_mark(state.device))
         on_mesh = {} if self.mesh is None else {"mesh": self.mesh}
-        state = run_steps(state, params, self.cfg, n_steps, h=h, **on_mesh)
-        marks.append(time_mark(state.device))
+        with tracing.span("steps"):
+            state = run_steps(state, params, self.cfg, n_steps, h=h,
+                              **on_mesh)
+        marks.append(tracing.time_mark(state.device))
         return state
 
     @staticmethod

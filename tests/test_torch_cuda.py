@@ -709,6 +709,64 @@ def test_read_side_matches_cpu(tmp_path):
     assert (t["refresh_n"], t["steps_n"]) == (2, 10) and t["steps_s"] > 0
 
 
+@pytest.mark.slow
+def test_host_reads_end_after_their_copies():
+    """The host spans and torch.profiler's stamps share a clock up to an
+    offset: under the profiler with CUDA activity, the host reads of
+    device values in a DoDynamics frame (the step size, sync.refresh,
+    .count, .shrink's three, .lost) pair in order with the profile's
+    device-to-host copies, and each anchor's span (all but the step
+    size's) ends within 100 us after its last copy ends, the offset being
+    that of the read whose host woke soonest (over so short a frame the
+    two clocks drift apart by a few us at most). The frame is marked
+    profiled. 64 clumps on a floor, K 5, frames of 20 steps in blocks of
+    2 chunks."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    from dem_engine_tpu_torch import tracing
+
+    s = DEMSolver(device="cuda")
+    s.SetVerbosity("QUIET")
+    s.InstructBoxDomainDimension(0.1, 0.1, 0.1)
+    mat = s.LoadMaterial({"E": 1e7, "nu": 0.3, "CoR": 0.5, "mu": 0.4,
+                          "Crr": 0.0})
+    g = np.stack(np.meshgrid(*[np.arange(4)] * 3, indexing="ij"),
+                 -1).reshape(-1, 3)
+    s.AddClumps(s.LoadSphereType(1e-3, 0.005, mat), g * 0.0099 - 0.02)
+    s.AddBCPlane([0, 0, -0.026], [0, 0, 1], mat)
+    s.SetInitTimeStep(1e-5)
+    s.SetCDUpdateFreq(5)
+    s.Initialize()
+    s.engine.fuse = 2
+    s.DoDynamics(2e-4)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        s.DoDynamics(2e-4)
+        torch.cuda.synchronize()
+    frame = tracing.frames()[-1]
+    assert frame["profiled"]
+    copies = sorted(e.start_ns() + e.duration_ns()
+                    for e in prof.profiler.kineto_results.events()
+                    if e.name().startswith("Memcpy DtoH"))
+    n_copies = {"sync.h": 1, "sync.refresh": 1, "sync.count": 1,
+                "sync.shrink": 3, "sync.lost": 1}
+    reads = [(n, e) for n, _, _, e in frame["spans"] if n in n_copies]
+    # the step size, 4 overflow reads, 2 blocks' counts, a shrink check's
+    # 3 reads, the lost read
+    assert [n for n, _ in reads].count("sync.refresh") == 4
+    assert len(copies) == sum(n_copies[n] for n, _ in reads) == 11
+    lags, k = [], 0
+    for n, e in reads:
+        k += n_copies[n]
+        if n != "sync.h":
+            lags.append(e - copies[k - 1])
+    rel = [x - min(lags) for x in lags]
+    print(f"host read ends after their copies' ends, less the least: "
+          f"{rel} ns")
+    assert max(rel) <= 100_000
+
+
 def test_cohesive_solver_matches_cpu():
     """A custom force model through the public DEMSolver on the card
     against the CPU: the cohesive scene of tests/test_torch_custom.py

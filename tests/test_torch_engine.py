@@ -1,4 +1,5 @@
-"""The port's Engine protocol: capacity shrink and unique-fetch growth.
+"""The port's Engine protocol: capacity shrink, unique-fetch growth and
+the engine loop's timing.
 
 * ``maybe_shrink`` picks the same capacities as the JAX package's
   ``Engine.maybe_shrink`` for the same counts and capacities. Both read
@@ -11,9 +12,18 @@
   lists survive a capacity shrink between refresh and steps (the unique
   and the direct step stay equal after it, within 1e-6), with the block
   row starts of kernel B-ub.
+* The timing (``tracing``) on a 32-sphere bed through the port's
+  ``DEMSolver`` on the CPU, in a frame of 5 steps at K 2 with blocks of 2
+  chunks (a measured block, a shrink check in it and one in the
+  remainder): the refresh's five stages and its round trip sum to its
+  span; the timers are flat scalars, and a copy of them stays put; each
+  site's round trips are what the loop's code makes; the host span ring
+  nests each frame's spans on ``time.time_ns()``, keeps its bound,
+  outlives the solver and marks a frame run under torch.profiler.
 """
 
 import dataclasses
+import time
 
 import jax
 import numpy as np
@@ -23,7 +33,7 @@ from test_pallas_force import _build as build_pile
 
 from dem_engine_tpu.models import HertzianForceModel
 from dem_engine_tpu.solver import Engine as JaxEngine
-from dem_engine_tpu_torch import convert
+from dem_engine_tpu_torch import DEMSolver, convert, tracing
 from dem_engine_tpu_torch.initializer import empty_ss_table, ss_uniq_rows
 from dem_engine_tpu_torch.solver import Engine, refresh_contacts, run_steps
 from dem_engine_tpu_torch.state import OVF_UNIQ
@@ -74,7 +84,7 @@ def test_maybe_shrink_matches_jax(counts, caps):
     assert got == (jeng.cfg.cap_ss, jeng.cfg.cap_st, jeng.cfg.cap_sa)
     assert (ts.ss.cap, ts.st.cap, ts.sa.cap) == got
     assert (js.ss.cap, js.st.cap, js.sa.cap) == got
-    assert eng.shrinks == jeng.timers["shrinks"]
+    assert eng.timers["shrinks"] == jeng.timers["shrinks"]
 
 
 def _pile(seed, uniq_cap):
@@ -161,3 +171,117 @@ def test_uniq_survives_capacity_shrink():
         ref, got = s_d.ss.wildcards[k], s_u.ss.wildcards[k]
         assert float((ref - got).abs().max()) <= 1e-6 * float(
             ref.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the engine loop's timing (tracing)
+# ---------------------------------------------------------------------------
+
+R, H = 0.005, 1e-5
+#: the frame: K 2, blocks of FUSE chunks, STEPS steps = one block of 2
+#: chunks and a remainder chunk of 1 step
+K, FUSE, STEPS = 2, 2, 5
+
+
+@pytest.fixture(scope="module")
+def bed():
+    """A 4 x 4 x 2 lattice of spheres just above a floor, initialized,
+    with the frame's blocks of FUSE chunks."""
+    s = DEMSolver(device="cpu")
+    s.SetVerbosity("QUIET")
+    dims = np.asarray([28 * R, 28 * R, 48 * R])
+    s.InstructBoxDomainDimension(*dims)
+    mat = s.LoadMaterial({"E": 1e7, "nu": 0.3, "CoR": 0.5, "mu": 0.4,
+                          "Crr": 0.0})
+    i = np.arange(32)
+    pos = np.stack([i % 4 * 2 * R + 10 * R, i // 4 % 4 * 2 * R + 10 * R,
+                    i // 16 * 2 * R + 3 * R], -1) - dims / 2
+    s.AddClumps(s.LoadSphereType(2600 * 4 / 3 * np.pi * R**3, R, mat), pos)
+    s.AddBCPlane([0, 0, -dims[2] / 2 + 2 * R], [0, 0, 1], mat)
+    s.SetInitTimeStep(H)
+    s.SetCDUpdateFreq(K)
+    s.Initialize()
+    s.engine.fuse = FUSE
+    return s
+
+
+@pytest.fixture(scope="module")
+def framed(bed):
+    """One frame on cleared timers: a copy of its timers, the ring's
+    frames after it, and the host clock before and after."""
+    bed.ClearTimingStats()
+    t0 = time.time_ns()
+    bed.DoDynamics(STEPS * H)
+    t1 = time.time_ns()
+    return dict(timers=dict(bed.engine.read_timers()), t0=t0, t1=t1,
+                frames=tracing.frames())
+
+
+def test_refresh_stages_sum_to_the_refresh_span(framed):
+    t = framed["timers"]
+    parts = [t[f"refresh_{s}_s"] for s, _, _ in tracing.REFRESH_STAGES]
+    assert all(p > 0 for p in parts)
+    assert sum(parts) + t["refresh_sync_s"] == pytest.approx(
+        t["refresh_s"], rel=1e-9)
+
+
+def test_timers_are_flat_and_a_copy_stays_put(bed, framed):
+    t = framed["timers"]
+    assert set(t) == set(tracing.zero_timers())
+    assert all(type(v) in (int, float) for v in t.values())
+    snap = dict(t)
+    bed.DoDynamics(H)
+    assert t == snap
+    assert bed.engine.read_timers()["steps_n"] == STEPS + 1
+
+
+def test_round_trips_by_site(framed):
+    """Per frame: a refresh's overflow read per attempt, one count at the
+    block's first chunk, two shrink checks of three reads, two pageable
+    tensors a chunk, and one each of the step size, the frame's sync, the
+    fold after it and the lost-contact read."""
+    t = framed["timers"]
+    chunks = FUSE + 1
+    assert (t["refresh_n"], t["steps_n"], t["grows"]) == (chunks, STEPS, 0)
+    assert t["shrink_checks"] == 2
+    want = dict(refresh=chunks + t["retries"], count=1, shrink=6, fold=1,
+                params=2 * chunks, h=1, tune=0, frame=1, lost=1)
+    assert {x: t[f"sync_{x}_n"] for x in tracing.SYNC_SITES} == want
+    assert all(t[f"sync_{x}_s"] >= 0 for x in tracing.SYNC_SITES)
+
+
+def test_span_ring(bed, framed):
+    names = {"frame.tail", "chunk.setup", "refresh", "grow", "chunk.fold",
+             "shrink", "steps"} | set(tracing.REFRESH_SPANS.values()) | {
+        "sync." + x for x in tracing.SYNC_SITES}
+    f = framed["frames"][-1]
+    assert framed["t0"] <= f["start_ns"] < f["end_ns"] <= framed["t1"]
+    assert not f["profiled"]
+    spans = f["spans"]
+    assert {x[0] for x in spans} <= names
+    assert sum(x[0] == "steps" for x in spans) == FUSE + 1
+    for name, depth, a, b in spans:
+        assert depth >= 1 and f["start_ns"] <= a <= b <= f["end_ns"]
+        # inside a span one level up
+        if depth > 1:
+            assert any(d == depth - 1 and p <= a and b <= q
+                       for _, d, p, q in spans)
+    # under torch.profiler a frame knows it; the ring outlives the solver
+    with torch.autograd.profiler.profile():
+        bed.DoDynamics(H)
+    kept = tracing.frames()[-1]
+    assert kept["profiled"] and kept["start_ns"] > f["end_ns"]
+    held = tracing._ring.copy()
+    try:
+        for _ in range(tracing.RING_SPANS):
+            with tracing.span("steps"):
+                pass
+        assert len(tracing._ring) == tracing.RING_SPANS
+        with tracing.frame():
+            pass
+        # a full ring may have cut its oldest frame: that one is left out
+        assert tracing.frames() == []
+    finally:
+        tracing._ring.clear()
+        tracing._ring.extend(held)
+    assert tracing.frames()[-1] == kept

@@ -358,7 +358,8 @@ def uneven(mesh):
     return dict(slabs=torch.bincount(slab.clamp(0, mesh.size - 1),
                                      minlength=mesh.size).numpy(),
                 slab0_pairs=int((first == 0).sum()), home=int(out.ss.count), caps=[cap, eng.cfg.cap_ss],
-                grows=[grows, eng.timers["grows"]], shrinks=eng.shrinks,
+                grows=[grows, eng.timers["grows"]],
+                shrinks=eng.timers["shrinks"],
                 overflow=int(out.overflow), pairs=pairs(gather_state(
                     out, mesh).ss), ref=pairs(ref.ss))
 
